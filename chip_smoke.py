@@ -9,14 +9,24 @@ together, into build/kernels/. Phases (any failure exits non-zero):
 1. K1, the hand-written resource-fit kernel, against its plain PyTorch
    version on the card: the main-path shape [TPL, 8192, 6] for TPL = 8
    and 64, ragged N (700, 5001), R = 1 and R = 12, zero-request columns
-   and negative free. Tolerance: none, the masks must be bit-equal.
+   and negative free; and the edge shapes of its tiling: N % 4 = 1, 2, 3
+   (8193-8195), N < 4, TPL off its 4-template tile, TPL > 256.
+   Tolerance: none, the masks must be bit-equal. At [8, 8192, 6] and
+   [64, 8192, 6] (and at the main path's live shape after phase 2) it is
+   timed: the launch floor (fit_mask_floor_launch, an empty kernel with
+   K1's grid), per call from Python, and the parent commit's
+   wrapper and kernel in turns (parent, new, new, parent) when they have
+   been placed under build/tree/ (see load_parent).
 1b. K2, the fused fit mask + least-allocated score, against its plain
    version at [16, 8192, 6], [16, 700, 6], [16, 5001, 6], [4, 8192, 1]
-   and [8, 5001, 12], with zero-request templates, negative free, alloc =
-   0 columns and an exact fit. The mask must be bit-equal; the score
-   bit-equal too, else the largest difference is printed and the run
-   fails above 1e-6 relative. No path of the system runs K2: it is a
-   standalone kernel, as in the reference.
+   and [8, 5001, 12], and at its tiling's edges: TPL off its 4-template
+   tile (17, 5, 3), N % 4 = 3, 1, 2, N < 4, TPL > 256; with zero-request
+   templates, negative free, alloc = 0 columns and an exact fit. The mask
+   must be bit-equal; the score bit-equal too, else the largest
+   difference is printed and the run fails above 1e-6 relative. Timed
+   like K1 (floor, per call, parent in turns) at [16, 8192, 6],
+   [16, 5001, 6] and [8, 5001, 12]. No path of the system runs K2: it is
+   a standalone kernel, as in the reference.
 2. The main path: SchedulingPodAffinity/5000 (5,000 nodes, 1,000 initial
    pods, 5,000 measured pods with required zone pod-affinity; random
    choices from --seed) encoded on the card and scheduled batch by batch
@@ -41,27 +51,42 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    API server's bindings, and every measured pod in a zone that held an
    app=bench pod.
 6. Latency: run_latency_benchmark at max(10, min(0.3 x the burst pods/s,
-   2000)) pods/s with 500 pods (bench.py's rule); all 500 must bind.
+   2000)) pods/s with 500 pods (bench.py's rule); all 500 must bind, and
+   K1 must be launched.
 
-The kernel launch counts are set to 0 just before each main path (phase 2
-and phase 5) and read just after. The last lines are the card's name and
+The kernel launch counts are set to 0 just before each main path (phases
+2, 5 and 6) and read just after. The last lines are the card's name and
 power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line with each
-kernel's launches on the Scheduler run, time, bound and plain time, and
+kernel's launches on the Scheduler's burst run (``launches``) and latency
+run (``launches_latency``), its device time, bound, plain time, launch
+floor (``floor_ms``), time per call from Python (``call_ms``) and the
+parent's time (``parent_ms``, null without build/tree/), and
 ``{"ok": true, "device": {...}}``.
+
+To time the parent commit against this tree in the same run, place its
+kernel module and sources under the git-ignored build/tree/, e.g.
+``git archive <parent> kubernetes_tpu_torch/ops/fit_kernels.py
+kubernetes_tpu_torch/csrc | tar -x -C build/tree``.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
+import importlib.util
 import json
 import logging
+import re
 import subprocess
 import sys
+import threading
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
+PARENT_TREE = Path(__file__).resolve().parent / "build" / "tree"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_OPS_PER_S = 67e12  # H100 SXM CUDA-core 32-bit rate (no tensor cores)
 
@@ -143,26 +168,139 @@ def fit_bound(tpl: int, n: int, r: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def load_parent():
+    """The parent commit's kernel module, when its ``ops/fit_kernels.py`` and
+    ``csrc/`` have been placed under the git-ignored build/tree/ (same
+    relative paths) for a parent-against-change run; else None. It builds
+    its own sources into build/tree/build/kernels/."""
+    path = PARENT_TREE / "kubernetes_tpu_torch" / "ops" / "fit_kernels.py"
+    if not path.exists():
+        return None
+    spec = importlib.util.spec_from_file_location("parent_fit_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def ptxas_report(name: str, build_log: str) -> None:
+    """One line per compiled kernel: registers, barriers, shared memory and
+    spills, from nvcc's -Xptxas=-v output."""
+    entry, spill = None, ""
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry, spill = m.group(1), ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            log(f"[build] {name} ptxas: {entry}: {line.split(':', 1)[1].strip()}; {spill}")
+
+
 def build_kernels():
-    """Both kernel libraries, built by concurrent nvcc processes."""
+    """Both kernel libraries, built by concurrent nvcc processes; the
+    parent's too (at the same time) when load_parent() finds them."""
     from kubernetes_tpu_torch.ops import fit_kernels
 
     t0 = time.perf_counter()
+    parent = load_parent()
+    failed = []
+
+    def build_parent():
+        try:
+            parent.build_all()
+        except Exception as e:  # reported below; the run then fails
+            failed.append(e)
+
+    side = threading.Thread(target=build_parent) if parent else None
+    if side:
+        side.start()
     libs = fit_kernels.build_all()
+    if side:
+        side.join()
+        if failed:
+            raise failed[0]
     log(f"[build] {', '.join(l.path.name for l in libs.values())} built/loaded "
-        f"in {time.perf_counter() - t0:.2f} s")
+        f"in {time.perf_counter() - t0:.2f} s"
+        + ("; the parent's kernels from build/tree/ beside them" if parent else ""))
     for name, lib in libs.items():
-        for line in lib.build_log.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                log(f"[build] {name} ptxas: {line.strip()}")
+        ptxas_report(name, lib.build_log)
+    bind_measurement_entries(libs)
+    return parent
 
 
-def phase_fit_kernel(device):
+def bind_measurement_entries(libs) -> None:
+    """argtypes of the entries only this script calls: each kernel's empty
+    launch with its grid (the launch floor)."""
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for lib, name, args in (
+        ("fit_mask", "fit_mask_floor_launch", (I, I, P)),
+        ("fit_least_alloc", "fit_least_alloc_floor_launch", (I, I, P)),
+    ):
+        fn = getattr(libs[lib].cdll, name)
+        fn.argtypes = list(args)
+        fn.restype = ctypes.c_int
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def in_turns(timer, a, b):
+    """timer(a), timer(b), timer(b), timer(a): (mean of a, mean of b, the
+    four readings in that order)."""
+    r = [timer(a), timer(b), timer(b), timer(a)]
+    return (r[0] + r[3]) / 2, (r[1] + r[2]) / 2, r
+
+
+def _fmt(xs) -> str:
+    return "/".join(f"{x * 1e3:.3f}" for x in xs)
+
+
+def k1_timings(req, free, parent, what: str) -> dict:
+    """K1 at one shape: the kernel through its wrapper (against the parent
+    commit's wrapper and kernel in turns when present), the launch floor,
+    the plain version; device time from the CUDA graph replay and the time
+    per call from Python."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+
+    tpl, r = req.shape
+    n = free.shape[0]
+    lib = fit_kernels.library("fit_mask")
+    new = lambda: fit_kernels.fit_mask(req, free)  # noqa: E731
+    if not torch.equal(new(), fit_kernels.fit_mask_plain(req, free)):
+        raise AssertionError(f"[K1] {what} TPL={tpl} N={n} R={r}: mask differs")
+    res = {"parent_ms": None, "parent_call_ms": None}
+    if parent is not None:
+        old = lambda: parent.fit_mask(req, free)  # noqa: E731
+        if not torch.equal(old(), new()):
+            raise AssertionError(f"[K1] {what}: parent and change disagree")
+        res["parent_ms"], res["ms"], dev = in_turns(device_ms, old, new)
+        res["parent_call_ms"], res["call_ms"], call = in_turns(call_ms, old, new)
+        turns = (f"parent/new/new/parent device {_fmt(dev)} us, per call "
+                 f"from Python {_fmt(call)} us; ")
+    else:
+        res["ms"], res["call_ms"] = device_ms(new), call_ms(new)
+        turns = "parent not present (build/tree/); "
+
+    res["floor_ms"] = device_ms(lambda: lib.cdll.fit_mask_floor_launch(tpl, n, _stream()))
+    res["plain_ms"] = device_ms(lambda: fit_kernels.fit_mask_plain(req, free))
+    res["bound_ms"], res["bound_by"] = fit_bound(tpl, n, r)
+    log(f"[K1] {what} TPL={tpl} N={n} R={r}: bit-equal; {turns}launch floor "
+        f"{res['floor_ms'] * 1e3:.3f} us; plain {res['plain_ms'] * 1e3:.3f} us; bound {res['bound_ms'] * 1e3:.4f} us "
+        f"({res['bound_by']}); kernel {res['ms'] * 1e3:.3f} us, per call "
+        f"{res['call_ms'] * 1e3:.3f} us")
+    return res
+
+
+def phase_fit_kernel(device, parent):
     from kubernetes_tpu_torch.ops import fit_kernels
 
     cases = [
         (8, 8192, 6), (64, 8192, 6), (4, 700, 6), (16, 5001, 6),
         (8, 8192, 1), (8, 5001, 12),
+        # N % 4 = 1, 2, 3; N < 4; TPL off K1's 4-template tile; TPL > 256
+        (4, 8193, 6), (5, 8194, 6), (17, 8195, 6), (3, 1, 6), (2, 2, 16),
+        (7, 3, 6), (300, 4099, 6), (257, 9, 5),
     ]
     for i, (tpl, n, r) in enumerate(cases):
         req, free = fit_case(i, tpl, n, r, device)
@@ -175,8 +313,10 @@ def phase_fit_kernel(device):
         ms = device_ms(lambda: fit_kernels.fit_mask(req, free))
         plain = device_ms(lambda: fit_kernels.fit_mask_plain(req, free))
         bound, by = fit_bound(tpl, n, r)
-        log(f"[K1] TPL={tpl} N={n} R={r}: bit-equal; device time kernel "
-            f"{ms:.5f} ms, plain {plain:.5f} ms; bound {bound:.6f} ms ({by})")
+        log(f"[K1] TPL={tpl} N={n} R={r}: bit-equal; device time "
+            f"kernel {ms:.5f} ms, plain {plain:.5f} ms; bound {bound:.6f} ms ({by})")
+    for tpl in (8, 64):
+        k1_timings(*fit_case(50 + tpl, tpl, 8192, 6, device), parent, "timed")
     log("[K1] no single PyTorch call computes this mask: library_ms is null")
 
 
@@ -208,12 +348,49 @@ def la_bound(tpl: int, n: int, r: int):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def phase_least_alloc(device):
+def k2_timings(req, free, alloc, parent) -> dict:
+    """K2 at one shape, as k1_timings: against the parent in turns when
+    present, the launch floor, per call from Python."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+
+    tpl, r = req.shape
+    n = free.shape[0]
+    lib = fit_kernels.library("fit_least_alloc")
+    new = lambda: fit_kernels.fit_mask_least_alloc(req, free, alloc)  # noqa: E731
+    res = {"parent_ms": None, "parent_call_ms": None}
+    if parent is not None:
+        old = lambda: parent.fit_mask_least_alloc(req, free, alloc)  # noqa: E731
+        (om, os_), (nm, ns) = old(), new()
+        if not (torch.equal(om, nm) and torch.equal(os_, ns)):
+            raise AssertionError(f"[K2] TPL={tpl} N={n} R={r}: parent and change disagree")
+        res["parent_ms"], res["ms"], dev = in_turns(device_ms, old, new)
+        res["parent_call_ms"], res["call_ms"], call = in_turns(call_ms, old, new)
+        turns = (f"parent/new/new/parent device {_fmt(dev)} us, per call "
+                 f"from Python {_fmt(call)} us; ")
+    else:
+        res["ms"], res["call_ms"] = device_ms(new), call_ms(new)
+        turns = "parent not present (build/tree/); "
+    res["floor_ms"] = device_ms(
+        lambda: lib.cdll.fit_least_alloc_floor_launch(tpl, n, _stream())
+    )
+    log(f"[K2] timed TPL={tpl} N={n} R={r}: {turns}launch floor "
+        f"{res['floor_ms'] * 1e3:.3f} us; kernel {res['ms'] * 1e3:.3f} us, per "
+        f"call {res['call_ms'] * 1e3:.3f} us")
+    return res
+
+
+def phase_least_alloc(device, parent):
     """K2 against its plain version on every listed shape. Returns the
     main shape's numbers for the kernels line."""
     from kubernetes_tpu_torch.ops import fit_kernels
 
-    cases = [(16, 8192, 6), (16, 700, 6), (16, 5001, 6), (4, 8192, 1), (8, 5001, 12)]
+    cases = [
+        (16, 8192, 6), (16, 700, 6), (16, 5001, 6), (4, 8192, 1), (8, 5001, 12),
+        # TPL off K2's template tile; N % 4 = 3, 1, 2; N < 4; TPL > 256
+        (17, 8191, 6), (5, 4097, 6), (3, 1030, 6), (6, 3, 6), (1, 1, 16),
+        (300, 2049, 6),
+    ]
+    timed = {(16, 8192, 6), (16, 5001, 6), (8, 5001, 12)}
     out = None
     worst = 0.0
     for i, (tpl, n, r) in enumerate(cases):
@@ -241,8 +418,10 @@ def phase_least_alloc(device):
         bound, by = la_bound(tpl, n, r)
         log(f"[K2] TPL={tpl} N={n} R={r}: mask bit-equal, score {eq}; device "
             f"time kernel {ms:.5f} ms, plain {plain:.5f} ms; bound {bound:.6f} ms ({by})")
-        if out is None:
-            out = {"ms": ms, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
+        if (tpl, n, r) in timed:
+            t = k2_timings(req, free, alloc, parent)
+            if out is None:
+                out = {**t, "plain_ms": plain, "bound_ms": bound, "bound_by": by}
     out["max_abs_err"] = worst
     log("[K2] no single PyTorch call computes this mask and score: library_ms is null")
     return out
@@ -573,9 +752,9 @@ def main(argv=None) -> int:
     from kubernetes_tpu_torch.ops import fit_kernels
 
     errors = ErrorLog()
-    build_kernels()
-    phase_fit_kernel(device)
-    k2 = phase_least_alloc(device)
+    parent = build_kernels()
+    phase_fit_kernel(device, parent)
+    k2 = phase_least_alloc(device, parent)
 
     mp = main_path(device, args.seed)
     b = mp["batches"]
@@ -597,24 +776,22 @@ def main(argv=None) -> int:
     snap = enc.flush()
     req = mp["cache"]._tpl_batch.req.contiguous()
     free = (snap.allocatable - snap.requested).contiguous()
-    tpl, r = req.shape
-    n = free.shape[0]
     got = fit_kernels.fit_mask(req, free)
     max_abs_err = float((got.int() - fit_kernels.fit_mask_plain(req, free).int()).abs().max())
-    ms = device_ms(lambda: fit_kernels.fit_mask(req, free))
-    plain_ms = device_ms(lambda: fit_kernels.fit_mask_plain(req, free))
-    call = call_ms(lambda: fit_kernels.fit_mask(req, free))
-    plain_call = call_ms(lambda: fit_kernels.fit_mask_plain(req, free))
-    bound_ms, bound_by = fit_bound(tpl, n, r)
-    log(f"[K1] main-path shape TPL={tpl} N={n} R={r}: device time kernel "
-        f"{ms:.5f} ms, plain {plain_ms:.5f} ms; per call from Python kernel "
-        f"{call:.5f} ms, plain {plain_call:.5f} ms; bound {bound_ms:.6f} ms "
-        f"({bound_by}); max |kernel - plain| {max_abs_err}")
+    k1 = k1_timings(req, free, parent, "main-path shape")
+    log(f"[K1] main-path shape: max |kernel - plain| {max_abs_err}")
 
     phase_parity(mp, device)
 
     res, k1_launches, k2_launches = phase_scheduler(device, card, errors)
+    fit_kernels.fit_mask.launches = 0
+    fit_kernels.fit_mask_least_alloc.launches = 0
     phase_latency(device, res.throughput_pods_per_s, errors)
+    k1_latency = fit_kernels.fit_mask.launches
+    k2_latency = fit_kernels.fit_mask_least_alloc.launches
+    log(f"[latency] K1 launches {k1_latency}, K2 launches {k2_latency}")
+    if k1_latency <= 0:
+        raise AssertionError("[latency] the Scheduler never launched K1")
 
     kernels = {
         "kernels": [
@@ -624,12 +801,17 @@ def main(argv=None) -> int:
                 "source": "kubernetes_tpu_torch/csrc/fit_mask.cu",
                 "replaces": "kubernetes_tpu/ops/pallas_ops.py:120",
                 "launches": k1_launches,
+                "launches_latency": k1_latency,
                 "max_abs_err": max_abs_err,
-                "ms": ms,
-                "plain_ms": plain_ms,
-                "bound_ms": bound_ms,
-                "bound_by": bound_by,
+                "ms": k1["ms"],
+                "plain_ms": k1["plain_ms"],
+                "bound_ms": k1["bound_ms"],
+                "bound_by": k1["bound_by"],
                 "library_ms": None,
+                "floor_ms": k1["floor_ms"],
+                "call_ms": k1["call_ms"],
+                "parent_ms": k1["parent_ms"],
+                "parent_call_ms": k1["parent_call_ms"],
             },
             {
                 "name": "fit_mask_least_alloc",
@@ -638,12 +820,17 @@ def main(argv=None) -> int:
                 "replaces": "kubernetes_tpu/ops/pallas_ops.py:69",
                 "path": "standalone",
                 "launches": k2_launches,
+                "launches_latency": k2_latency,
                 "max_abs_err": k2["max_abs_err"],
                 "ms": k2["ms"],
                 "plain_ms": k2["plain_ms"],
                 "bound_ms": k2["bound_ms"],
                 "bound_by": k2["bound_by"],
                 "library_ms": None,
+                "floor_ms": k2["floor_ms"],
+                "call_ms": k2["call_ms"],
+                "parent_ms": k2["parent_ms"],
+                "parent_call_ms": k2["parent_call_ms"],
             },
         ]
     }

@@ -28,13 +28,24 @@ it is a standalone kernel held against its plain version.
   ``alloc`` are the snapshot's natural ``[N, R]`` (the reference's
   ``[8, N]`` transposed, 512-padded layout is a TPU lane layout).
 
-Source note: both kernels are bound by memory — K1 moves ``N·R·4 + TPL·N
-+ TPL·R·4`` bytes for ``TPL·N·R`` integer compares, K2 ``2·N·R·4 + TPL·R·4
-+ TPL·N·5`` — and, at the wave path's sizes (N = 8192, R = 6, TPL ≤ 64:
-about 1 MB), by launch latency. One thread owns one node: its R values
-are read once into registers and reused for every template, the block
-keeps the requests in shared memory, and adjacent threads write adjacent
-outputs, so one coalesced pass writes everything.
+Source note: both kernels are bound by launch latency and one exposed
+memory round trip, not by bytes — K1 moves ``N·R·4 + TPL·N + TPL·R·4``
+bytes for ``TPL·N·R`` integer compares, K2 ``2·N·R·4 + TPL·R·4 + TPL·N·5``
+for ``TPL·N·(R + 1)`` IEEE divisions, about 0.2 and 1 MB at the wave
+path's sizes. So both spread the work over the SMs: K1 gives each thread
+one node in 64-thread blocks and tiles the template axis over the grid's
+y dimension, with no shared memory and no barrier; K2 runs one thread per
+(template, node) output over a 2-D grid, the block's node tile of
+``free`` and denominators read once, as int4 vectors, into shared memory.
+Each source says more, and each also exports ``<name>_floor_launch``, an
+empty kernel with its grid, for ``chip_smoke.py`` to time the launch
+floor.
+
+The host call: after the first build a wrapper reads the loaded library
+from a module-level dict without the build lock, and it enters a
+``torch.cuda.device`` context only when the tensors' device is not the
+current one. K2's ``free`` and ``alloc`` must be 16-byte aligned: it reads
+them as int4 vectors, and a misaligned view raises.
 
 Build: ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 per source, named by the source's content hash under ``build/kernels/`` at
@@ -52,7 +63,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -90,6 +101,7 @@ class KernelLibrary(NamedTuple):
     path: Path
     build_log: str  # nvcc's output (ptxas register/shared-memory report)
     r_max: int
+    launch: Callable[..., int]  # <name>_launch, argtypes set
 
 
 _lock = threading.Lock()
@@ -123,7 +135,7 @@ def _load(src: KernelSource, path: Path, log: str) -> KernelLibrary:
     r_max = getattr(cdll, f"{src.name}_r_max")
     r_max.argtypes = []
     r_max.restype = ctypes.c_int
-    return KernelLibrary(cdll, path, log, int(r_max()))
+    return KernelLibrary(cdll, path, log, int(r_max()), launch)
 
 
 def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, KernelLibrary]:
@@ -172,21 +184,46 @@ def library(name: str = "fit_mask") -> KernelLibrary:
     return build_all([name])[name]
 
 
-def _check_cuda(fn: str, tensors: Sequence[torch.Tensor], shapes_ok: bool, shapes: str):
+def _check_cuda(fn: str, tensors: Sequence[torch.Tensor], shapes_ok: bool,
+                aligned: Sequence[torch.Tensor] = ()) -> None:
+    """Raises unless every tensor is a contiguous int32 tensor on one CUDA
+    device, the shapes fit, and each of `aligned` starts on 16 bytes."""
     dev = tensors[0].device
-    if any(t.device != dev for t in tensors) or dev.type != "cuda":
-        raise ValueError(
-            f"{fn}: tensors on {[str(t.device) for t in tensors]}; all must "
-            "be on one CUDA device (or all on the CPU)"
-        )
-    if any(t.dtype != torch.int32 for t in tensors):
-        raise TypeError(
-            f"{fn} takes int32 tensors, got {[t.dtype for t in tensors]}"
-        )
+    for t in tensors:
+        if t.device != dev or dev.type != "cuda":
+            raise ValueError(
+                f"{fn}: tensors on {[str(t.device) for t in tensors]}; all "
+                "must be on one CUDA device (or all on the CPU)"
+            )
+        if t.dtype != torch.int32:
+            raise TypeError(
+                f"{fn} takes int32 tensors, got {[t.dtype for t in tensors]}"
+            )
     if not shapes_ok:
-        raise ValueError(f"{fn}: shapes {shapes}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{fn} takes contiguous tensors")
+        raise ValueError(
+            f"{fn}: shapes {[tuple(t.shape) for t in tensors]} are not "
+            "[TPL, R] and [N, R] with one N and one R"
+        )
+    for t in tensors:
+        if not t.is_contiguous():
+            raise ValueError(f"{fn} takes contiguous tensors")
+    for t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(
+                f"{fn}: an [N, R] input starts at byte {t.data_ptr() % 16} "
+                "of a 16-byte vector (a view from inside a row); the kernel "
+                "reads it as int4 vectors: pass a fresh tensor"
+            )
+
+
+def _launch(device: torch.device, fn, *args) -> int:
+    """fn(*args, stream) on `device`'s current stream, inside a
+    torch.cuda.device context only when `device` is not the current one
+    (a kernel launches on the current device)."""
+    if device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return fn(*args, torch.cuda.current_stream(device).cuda_stream)
 
 
 def fit_mask_plain(req: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
@@ -205,19 +242,17 @@ def fit_mask(req: torch.Tensor, free: torch.Tensor) -> torch.Tensor:
     _check_cuda(
         "fit_mask", (req, free),
         req.dim() == 2 and free.dim() == 2 and req.shape[1] == free.shape[1],
-        f"{tuple(req.shape)} and {tuple(free.shape)} are not [TPL, R] and [N, R]",
     )
-    lib = library("fit_mask")
+    lib = _loaded.get("fit_mask") or library("fit_mask")
     tpl, r = req.shape
     n = free.shape[0]
     if r > lib.r_max:
         raise ValueError(f"fit_mask: R = {r} exceeds the kernel's {lib.r_max}")
     out = torch.empty((tpl, n), dtype=torch.bool, device=free.device)
-    with torch.cuda.device(free.device):
-        stream = torch.cuda.current_stream(free.device).cuda_stream
-        rc = lib.cdll.fit_mask_launch(
-            req.data_ptr(), free.data_ptr(), out.data_ptr(), tpl, n, r, stream
-        )
+    rc = _launch(
+        free.device, lib.launch,
+        req.data_ptr(), free.data_ptr(), out.data_ptr(), tpl, n, r,
+    )
     if rc != 0:
         raise RuntimeError(f"fit_mask kernel launch failed: CUDA error {rc}")
     if tpl and n:  # the C entry launches nothing for an empty mask
@@ -264,10 +299,9 @@ def fit_mask_least_alloc(
         "fit_mask_least_alloc", (req, free, alloc),
         req.dim() == 2 and free.dim() == 2
         and free.shape == alloc.shape and req.shape[1] == free.shape[1],
-        f"{tuple(req.shape)}, {tuple(free.shape)}, {tuple(alloc.shape)} are "
-        "not [TPL, R], [N, R], [N, R]",
+        (free, alloc),
     )
-    lib = library("fit_least_alloc")
+    lib = _loaded.get("fit_least_alloc") or library("fit_least_alloc")
     tpl, r = req.shape
     n = free.shape[0]
     if r > lib.r_max:
@@ -276,12 +310,11 @@ def fit_mask_least_alloc(
         )
     mask = torch.empty((tpl, n), dtype=torch.bool, device=free.device)
     score = torch.empty((tpl, n), dtype=torch.float32, device=free.device)
-    with torch.cuda.device(free.device):
-        stream = torch.cuda.current_stream(free.device).cuda_stream
-        rc = lib.cdll.fit_least_alloc_launch(
-            req.data_ptr(), free.data_ptr(), alloc.data_ptr(),
-            mask.data_ptr(), score.data_ptr(), tpl, n, r, stream,
-        )
+    rc = _launch(
+        free.device, lib.launch,
+        req.data_ptr(), free.data_ptr(), alloc.data_ptr(),
+        mask.data_ptr(), score.data_ptr(), tpl, n, r,
+    )
     if rc != 0:
         raise RuntimeError(
             f"fit_mask_least_alloc kernel launch failed: CUDA error {rc}"

@@ -766,9 +766,9 @@ class Scheduler:
 
     def _auto_pipeline_depth(self) -> int:
         """Pick the wave-pipeline depth from the measured device->host
-        readback RTT: a remote device (tens of ms per sync) wants the deep
-        pipeline so one readback amortizes over many batches; a local card
-        or the CPU (sub-ms) wants the shallow one — deep pipelining there
+        readback RTT: a device whose every sync crosses a slow link wants
+        the deep pipeline so one readback amortizes over many batches; a
+        local card or the CPU wants the shallow one — deep pipelining there
         only adds pod latency. The probe's errors propagate: a device that
         cannot do a 64-byte round-trip must not start scheduling."""
         d = torch.zeros(16, dtype=torch.float32, device=self.device)

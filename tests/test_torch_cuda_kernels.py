@@ -39,7 +39,11 @@ def _case(seed, tpl, n, r):
 @pytest.mark.parametrize(
     "tpl,n,r",
     [(4, 8192, 6), (8, 8192, 6), (64, 8192, 6), (5, 700, 6), (3, 5001, 1),
-     (7, 1000, 12), (300, 129, 6), (1, 1, 16)],
+     (7, 1000, 12), (300, 129, 6), (1, 1, 16),
+     # the tiling's edges: N % 4 = 1, 2, 3 (a partial last block); N < 4;
+     # TPL off the 4-template tile; TPL > 256 over many tiles; empty
+     (4, 8193, 6), (5, 8194, 6), (17, 8195, 6), (3, 2, 6), (2, 3, 7),
+     (257, 4099, 6), (33, 0, 6), (0, 64, 6)],
 )
 def test_fit_mask_kernel_matches_plain(tpl, n, r):
     if not torch.cuda.is_available():
@@ -48,7 +52,7 @@ def test_fit_mask_kernel_matches_plain(tpl, n, r):
     before = fit_mask.launches
     got = fit_mask(req, free)
     torch.cuda.synchronize()
-    assert fit_mask.launches == before + 1
+    assert fit_mask.launches == before + (1 if tpl and n else 0)
     assert got.dtype == torch.bool and got.shape == (tpl, n)
     assert torch.equal(got, fit_mask_plain(req, free))
 
@@ -66,6 +70,46 @@ def test_fit_mask_kernel_rejects_what_it_does_not_take():
         fit_mask(req[:, :5], free)
     with pytest.raises(ValueError):
         fit_mask(*_case(1, 2, 64, 17))
+
+
+def _misaligned(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of x that starts 8 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 2, dtype=x.dtype, device=x.device)
+    view = buf[2:].view(x.shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 8
+    return view
+
+
+@pytest.mark.cuda
+def test_fit_mask_kernel_takes_a_misaligned_view():
+    """K1 reads its [N, R] rows as scalar words: a contiguous view that
+    starts 8 bytes past a 16-byte boundary is launched and bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    req, free = _case(2, 4, 8192, 6)
+    view = _misaligned(free)
+    before = fit_mask.launches
+    got = fit_mask(req, view)
+    torch.cuda.synchronize()
+    assert fit_mask.launches == before + 1
+    assert torch.equal(got, fit_mask_plain(req, free))
+
+
+@pytest.mark.cuda
+def test_fit_mask_least_alloc_refuses_a_misaligned_view_and_launches_nothing():
+    """K2 reads its [N, R] node tiles as int4 vectors: a free or alloc view
+    that does not start on 16 bytes raises with a message, and nothing is
+    launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    req, free, alloc = _la_case(3, 4, 256, 6)
+    before = fit_mask_least_alloc.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        fit_mask_least_alloc(req, _misaligned(free), alloc)
+    with pytest.raises(ValueError, match="16-byte"):
+        fit_mask_least_alloc(req, free, _misaligned(alloc))
+    assert fit_mask_least_alloc.launches == before
 
 
 def _la_case(seed, tpl, n, r):
@@ -86,7 +130,10 @@ def _la_case(seed, tpl, n, r):
 @pytest.mark.parametrize(
     "tpl,n,r",
     [(16, 8192, 6), (16, 700, 6), (16, 5001, 6), (4, 8192, 1), (8, 5001, 12),
-     (300, 129, 6), (2, 1, 16)],
+     (300, 129, 6), (2, 1, 16),
+     # the tiling's edges: TPL off the 4-template tile; N % 4 = 3, 1, 2
+     # (a ragged node tile takes scalar loads); N < 4; TPL > 256
+     (17, 8191, 6), (5, 4097, 6), (3, 1030, 6), (6, 3, 6), (257, 2049, 6)],
 )
 def test_fit_mask_least_alloc_kernel_matches_plain(tpl, n, r):
     if not torch.cuda.is_available():

@@ -4,7 +4,10 @@ run in interpret mode and against its jnp fallback, on the CPU.
 
 Tolerance: none — the mask is boolean and must be bit-equal. Inputs are
 the seeds and edge cases of tests/test_pallas_ops.py: seeds 0-2, ragged
-N = 700, zero requests, exact fit, over by one, R > 8 and negative free.
+N = 700, zero requests, exact fit, over by one, R > 8 and negative free;
+plus the shapes the CUDA kernel's tiling makes special (``TILING_EDGES``:
+N = 1, 3, 5, 129, 8191 — N < 4, N % 4 != 0, a partial 64-node block — by
+TPL = 1, 3, 5, 17 — a partial 4-template tile).
 
 The CUDA kernel itself has no interpret mode: tests/test_torch_cuda_kernels.py
 compares it with the plain version on the card.
@@ -38,11 +41,21 @@ def _plain(req, free):
     return fit_mask_plain(torch.from_numpy(req), torch.from_numpy(free)).numpy()
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_fit_mask_plain_matches_pallas_interpret(seed):
-    """Ragged N = 700: the Pallas kernel runs (interpret) on the padded
-    layout of pad_inputs; its mask over the real columns is the port's."""
-    req, free, alloc = _random_case(seed)
+# (seed, TPL, N): the reference test's seeds at ragged N = 700, then every
+# TPL in {1, 3, 5, 17} at every N in {1, 3, 5, 129, 8191}
+TILING_EDGES = [pytest.param(s, 16, 700, id=str(s)) for s in (0, 1, 2)] + [
+    pytest.param(10 + i, tpl, n, id=f"tpl{tpl}-n{n}")
+    for i, (tpl, n) in enumerate(
+        (tpl, n) for n in (1, 3, 5, 129, 8191) for tpl in (1, 3, 5, 17)
+    )
+]
+
+
+@pytest.mark.parametrize("seed,tpl,n", TILING_EDGES)
+def test_fit_mask_plain_matches_pallas_interpret(seed, tpl, n):
+    """The Pallas kernel runs (interpret) on the padded layout of
+    pad_inputs; its mask over the real columns is the port's."""
+    req, free, alloc = _random_case(seed, tpl=tpl, n=n)
     rq, fr, al, n = pad_inputs(req, free, alloc)
     mask, _score = fit_mask_least_alloc(rq, fr, al, interpret=True)
     np.testing.assert_array_equal(_plain(req, free), np.asarray(mask)[:, :n])

@@ -9,7 +9,10 @@ free/alloc with N' a multiple of 512): its inputs go through its own
 ``pad_inputs``. The port takes the natural [N, R] layout unpadded; the
 results are compared on the real columns. Inputs are the seeds and edge
 cases of tests/test_pallas_ops.py (seeds 0-2, ragged N = 700, zero
-requests, exact fit, over by one) plus negative free and alloc = 0.
+requests, exact fit, over by one) plus negative free and alloc = 0, and
+the shapes the CUDA kernel's tiling makes special (``TILING_EDGES``: N =
+1, 3, 5, 129, 8191 — N % 4 != 0, N < 4, a partial 64-node tile — by TPL
+= 1, 3, 5, 17 — a partial 4-template tile).
 
 Tolerance: the mask is boolean and must be equal; the score within rtol
 1e-5 (the reference sums its eight padded resource rows in XLA's order,
@@ -70,9 +73,19 @@ def _assert_matches_reference(req, free, alloc):
         np.testing.assert_allclose(score, ref_score, rtol=RTOL)
 
 
-@pytest.mark.parametrize("seed", [0, 1, 2])
-def test_least_alloc_plain_matches_pallas_interpret_and_oracle(seed):
-    _assert_matches_reference(*_random_case(seed))
+# (seed, TPL, N): the reference test's seeds at ragged N = 700, then every
+# TPL in {1, 3, 5, 17} at every N in {1, 3, 5, 129, 8191}
+TILING_EDGES = [pytest.param(s, 16, 700, id=str(s)) for s in (0, 1, 2)] + [
+    pytest.param(10 + i, tpl, n, id=f"tpl{tpl}-n{n}")
+    for i, (tpl, n) in enumerate(
+        (tpl, n) for n in (1, 3, 5, 129, 8191) for tpl in (1, 3, 5, 17)
+    )
+]
+
+
+@pytest.mark.parametrize("seed,tpl,n", TILING_EDGES)
+def test_least_alloc_plain_matches_pallas_interpret_and_oracle(seed, tpl, n):
+    _assert_matches_reference(*_random_case(seed, tpl=tpl, n=n))
 
 
 def test_least_alloc_edge_semantics():
