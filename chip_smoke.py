@@ -41,6 +41,12 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    tests hold against the JAX reference) against the card's run: exact
    masks, counts and snapshot; scores within rtol = 1e-5; chosen nodes
    equal except inside a TIE_EPS near-tie.
+4b. The serial lattice on one 512-pod batch of the
+   main path's workload at 5,000 nodes (n_cap 8192, v_cap 8192, t_cap
+   64), on the card and then on the CPU from the same snapshot and tie
+   noise: chosen, feasible_count and resolvable must be equal, the
+   largest score difference is printed; the card's run on the batch's
+   first 128 pods is profiled (device busy against wall).
 5. The system's own entry point: perf/harness.run_benchmark of
    SchedulingPodAffinity/5000 through the port's APIServer, informers,
    queue and Scheduler (split-phase readback, assume and bind), after one
@@ -53,15 +59,28 @@ together, into build/kernels/. Phases (any failure exits non-zero):
 6. Latency: run_latency_benchmark at max(10, min(0.3 x the burst pods/s,
    2000)) pods/s with 500 pods (bench.py's rule); all 500 must bind, and
    K1 must be launched.
+7. [serial]: SchedulingPodAffinity/5000 through run_benchmark with
+   use_wave=False (the serial lattice at batch 4096): the gate of phase 5
+   (5000/5000 bound, bindings checked from the API server, 0 guard trips,
+   no ERROR logged); pods/s, batches and serial-kernel seconds per batch.
+8. [preempt]: run_preemption_benchmark at the reference's defaults
+   (1,000 full nodes, a burst of 1,000 priority-100 pods needing
+   victims). Requires all 1,000 bound, vector attempts > 0, no
+   kernel_error fallback and no preemption guard trip.
+9. [standby]: start_standby() on SchedulingPodAffinity/5000's cluster,
+   500 pods queued while it stands by, promote(), all 500 bound; the
+   warm-up seconds and the promotion ms. Requires exactly one standby
+   warm-up and all 500 bound, with the bindings checked.
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 5 and 6) and read just after. The last lines are the card's name and
-power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line with each
-kernel's launches on the Scheduler's burst run (``launches``) and latency
-run (``launches_latency``), its device time, bound, plain time, launch
-floor (``floor_ms``), time per call from Python (``call_ms``) and the
-parent's time (``parent_ms``, null without build/tree/), and
-``{"ok": true, "device": {...}}``.
+2, 5, 6, 7, 8 and 9) and read just after. The last lines are the card's
+name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line with
+each kernel's launches on the Scheduler's burst run (``launches``), the
+latency run (``launches_latency``), the serial, preemption and standby
+runs (``launches_serial``, ``launches_preempt``, ``launches_standby``),
+its device time, bound, plain time, launch floor (``floor_ms``), time per
+call from Python (``call_ms``) and the parent's time (``parent_ms``, null
+without build/tree/), and ``{"ok": true, "device": {...}}``.
 
 To time the parent commit against this tree in the same run, place its
 kernel module and sources under the git-ignored build/tree/, e.g.
@@ -447,6 +466,45 @@ class ErrorLog(logging.Handler):
             raise AssertionError(f"[{what}] {len(self.records)} ERROR records logged")
 
 
+def check_bindings(server, n_measured: int, what: str) -> None:
+    """The correctness gate on the API server's bindings: every pod bound,
+    requested <= allocatable on every node, and every measured pod
+    (``pod-*``) in a zone that held an app=bench pod (its required zone
+    affinity)."""
+    from kubernetes_tpu_torch.scheduler.cache.nodeinfo import Snapshot
+
+    nodes = server.list("nodes")[0]
+    pods = server.list("pods")[0]
+    unbound = [p.metadata.name for p in pods if not p.spec.node_name]
+    if unbound:
+        raise AssertionError(f"[{what}] {len(unbound)} pods unbound, e.g. {unbound[:3]}")
+    snap = Snapshot.from_literals(pods, nodes)
+    for ni in snap.node_info_list:
+        for rname, amount in ni.requested.items():
+            if amount > ni.allocatable.get(rname, 0):
+                raise AssertionError(
+                    f"[{what}] {ni.node.metadata.name}: {rname} requested "
+                    f"{amount} > allocatable {ni.allocatable.get(rname, 0)}"
+                )
+        if len(ni.pods) > ni.allocatable.get("pods", 0):
+            raise AssertionError(f"[{what}] {ni.node.metadata.name}: too many pods")
+    zone_of = {n.metadata.name: n.metadata.labels["topology.kubernetes.io/zone"] for n in nodes}
+    init_zones = {
+        zone_of[p.spec.node_name] for p in pods
+        if p.metadata.name.startswith("init-") and p.metadata.labels.get("app") == "bench"
+    }
+    measured = [p for p in pods if p.metadata.name.startswith("pod-")]
+    stray = [p.metadata.name for p in measured if zone_of[p.spec.node_name] not in init_zones]
+    if len(measured) != n_measured or stray:
+        raise AssertionError(
+            f"[{what}] {len(measured)} measured pods; {len(stray)} outside "
+            "the zones that held an app=bench pod"
+        )
+    log(f"[{what}] checked from the API server: {len(pods)} pods bound, "
+        f"requested <= allocatable on all {len(nodes)} nodes, every measured "
+        f"pod in one of the {len(init_zones)} zones that held an app=bench pod")
+
+
 def phase_scheduler(device, card: str, errors: ErrorLog):
     """SchedulingPodAffinity/5000 through the port's APIServer and
     Scheduler (run_benchmark), after a warm-up of the same presize."""
@@ -454,7 +512,6 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.perf.harness import run_benchmark
     from kubernetes_tpu_torch.perf.workloads import WORKLOADS
-    from kubernetes_tpu_torch.scheduler.cache.nodeinfo import Snapshot
     from kubernetes_tpu_torch.utils.metrics import metrics
 
     wl = WORKLOADS["SchedulingPodAffinity/5000"]
@@ -496,36 +553,7 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
     if k1 <= 0:
         raise AssertionError("[scheduler] the Scheduler never launched K1")
 
-    nodes = server.list("nodes")[0]
-    pods = server.list("pods")[0]
-    unbound = [p.metadata.name for p in pods if not p.spec.node_name]
-    if unbound:
-        raise AssertionError(f"[scheduler] {len(unbound)} pods unbound, e.g. {unbound[:3]}")
-    snap = Snapshot.from_literals(pods, nodes)
-    for ni in snap.node_info_list:
-        for rname, amount in ni.requested.items():
-            if amount > ni.allocatable.get(rname, 0):
-                raise AssertionError(
-                    f"[scheduler] {ni.node.metadata.name}: {rname} requested "
-                    f"{amount} > allocatable {ni.allocatable.get(rname, 0)}"
-                )
-        if len(ni.pods) > ni.allocatable.get("pods", 0):
-            raise AssertionError(f"[scheduler] {ni.node.metadata.name}: too many pods")
-    zone_of = {n.metadata.name: n.metadata.labels["topology.kubernetes.io/zone"] for n in nodes}
-    init_zones = {
-        zone_of[p.spec.node_name] for p in pods
-        if p.metadata.name.startswith("init-") and p.metadata.labels.get("app") == "bench"
-    }
-    measured = [p for p in pods if p.metadata.name.startswith("pod-")]
-    stray = [p.metadata.name for p in measured if zone_of[p.spec.node_name] not in init_zones]
-    if len(measured) != wl.num_measured_pods or stray:
-        raise AssertionError(
-            f"[scheduler] {len(measured)} measured pods; {len(stray)} outside "
-            "the zones that held an app=bench pod"
-        )
-    log(f"[scheduler] checked from the API server: {len(pods)} pods bound, "
-        f"requested <= allocatable on all {len(nodes)} nodes, every measured "
-        f"pod in one of the {len(init_zones)} zones that held an app=bench pod")
+    check_bindings(server, wl.num_measured_pods, "scheduler")
     return res, k1, k2
 
 
@@ -697,22 +725,28 @@ def phase_parity(mp, device):
     log(f"[wave] CPU run of the same batch ({cpu_s:.2f} s) agrees with the card "
         f"({ties} near-tie chosen differences)")
     try:
-        profile_wave(kern_fit, clone(snap), prep, mp["weights"], noise)
+        profile_device(
+            f"wave kernel, one batch of {cfg.batch_size} pods, {prep.n_waves} waves",
+            lambda: kern_fit.with_noise(
+                clone(snap), prep.eb.batch, prep.ptab, mp["weights"], noise
+            ),
+        )
     except (RuntimeError, AttributeError) as e:  # measurement only
         log(f"[profile] wave kernel device time not measured: {e}")
 
 
-def profile_wave(kern, snap, prep, weights, noise) -> None:
-    """Where one wave-kernel launch spends its time on this batch: wall
-    time against the sum of device kernel time (torch.profiler), and the
-    kernels that take most of it. Measurement only: prints "not measured"
-    when the profiler sees no device activity."""
+def profile_device(what: str, fn) -> dict:
+    """Where one call of fn() spends its time: wall time against the sum of
+    device kernel time (torch.profiler), and the kernels that take most of
+    it. Measurement only: says "not measured" when the profiler sees no
+    device activity. Returns {"wall_ms", "busy_ms", "launches"} (busy_ms
+    None when not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        kern.with_noise(snap, prep.eb.batch, prep.ptab, weights, noise)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = [
@@ -721,17 +755,218 @@ def profile_wave(kern, snap, prep, weights, noise) -> None:
     ]
     busy_us = sum(e.self_device_time_total for e in events)
     if busy_us <= 0:
-        log(f"[profile] wave kernel, one batch: wall {wall_ms:.2f} ms; device time "
-            "not measured (the profiler saw no device activity)")
-        return
+        log(f"[profile] {what}: wall {wall_ms:.2f} ms; device time not measured "
+            "(the profiler saw no device activity)")
+        return {"wall_ms": wall_ms, "busy_ms": None, "launches": None}
     launches = sum(e.count for e in events)
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
-    log(f"[profile] wave kernel, one batch of {prep.eb.batch.pod_tpl.shape[0]} pods, "
-        f"{prep.n_waves} waves: wall {wall_ms:.2f} ms, device busy "
+    log(f"[profile] {what}: wall {wall_ms:.2f} ms, device busy "
         f"{busy_us / 1e3:.3f} ms in {launches} kernel launches "
         f"(idle share {1 - busy_us / 1e3 / wall_ms:.3f})")
     for e in top:
         log(f"[profile]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "launches": launches}
+
+
+def serial_batch_check(mp, device) -> dict:
+    """One 512-pod batch of the main path's workload through the serial
+    lattice at 5,000 nodes on the card, then the same snapshot, batch and
+    tie noise through the port's own CPU run (the path the tier-1 tests
+    hold against the JAX reference): chosen, feasible_count and
+    resolvable must be equal; the score's largest difference is printed.
+    The card's run is profiled (device busy against wall)."""
+    from kubernetes_tpu_torch.ops.batch import encode_pod_batch
+    from kubernetes_tpu_torch.ops.lattice import make_schedule_batch
+
+    enc = mp["enc"]
+    pods = [mp["factory"](200000 + i) for i in range(512)]
+    eb = encode_pod_batch(enc, pods, pad_to=512)
+    snap = enc.flush()
+    n = snap.valid.shape[0]
+    noise = torch.rand((512, n), generator=mp["rng"], device=device)
+    kern = make_schedule_batch(enc.cfg.v_cap)
+    kern(snap, eb.batch, mp["weights"], noise)  # first launch: allocator warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = kern(snap, eb.batch, mp["weights"], noise)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+
+    def cpu(nt):
+        return type(nt)(*(t.cpu() for t in nt))
+
+    t0 = time.perf_counter()
+    ref = kern(cpu(snap), cpu(eb.batch), mp["weights"].cpu(), noise.cpu())
+    cpu_s = time.perf_counter() - t0
+    for f in ("chosen", "feasible_count", "resolvable"):
+        if not torch.equal(getattr(res, f).cpu(), getattr(ref, f)):
+            bad = int((getattr(res, f).cpu() != getattr(ref, f)).sum())
+            raise AssertionError(f"[serial] 512-pod batch: {f} differs at {bad} entries")
+    placed = ref.chosen >= 0
+    sa, sb = res.score.cpu()[placed], ref.score[placed]
+    if not torch.isfinite(sa).all():
+        raise AssertionError("[serial] 512-pod batch: non-finite scores")
+    max_diff = float((sa - sb).abs().max()) if int(placed.sum()) else 0.0
+    log(f"[serial] one 512-pod batch at {int(snap.valid.sum())} nodes (n_cap {n}, "
+        f"v_cap {enc.cfg.v_cap}, t_cap {snap.eterm_w.shape[1]}): card {card_s:.3f} s, "
+        f"CPU {cpu_s:.3f} s; chosen, feasible_count, resolvable equal "
+        f"({int(placed.sum())} placed); largest score difference {max_diff}")
+    if int(placed.sum()) == 0:
+        raise AssertionError("[serial] 512-pod batch placed nothing")
+    # the profile takes the batch's first 128 pods: the profiler's own
+    # bookkeeping grows with the ~140 launches of every pod step
+    sub = type(eb.batch)(*(t[:128] for t in eb.batch))
+    try:
+        prof = profile_device(
+            "serial lattice, one 128-pod batch",
+            lambda: kern(snap, sub, mp["weights"], noise[:128]),
+        )
+    except (RuntimeError, AttributeError) as e:  # measurement only
+        log(f"[profile] serial lattice device time not measured: {e}")
+        prof = {}
+    return {"card_s": card_s, "cpu_s": cpu_s, "max_score_diff": max_diff, **prof}
+
+
+def phase_serial(device, card: str, errors: ErrorLog) -> dict:
+    """SchedulingPodAffinity/5000 through run_benchmark with use_wave=False:
+    the serial lattice at the accelerator settings (batch 4096, 5,000
+    nodes); the correctness gate of [scheduler]."""
+    from kubernetes_tpu_torch.client.apiserver import APIServer
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import default_config, run_benchmark
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+
+    wl = WORKLOADS["SchedulingPodAffinity/5000"]
+    server = APIServer()
+    fit_kernels.fit_mask.launches = 0
+    fit_kernels.fit_mask_least_alloc.launches = 0
+    res = run_benchmark(
+        wl, sched_config=default_config(use_wave=False), device=device,
+        server=server, timeout_s=600, quiet=False,
+    )
+    k1 = fit_kernels.fit_mask.launches
+    k2 = fit_kernels.fit_mask_least_alloc.launches
+    per_batch = res.kernel_total_s / res.n_batches if res.n_batches else 0.0
+    log(f"[serial] SchedulingPodAffinity/5000, use_wave=False, through APIServer + "
+        f"Scheduler: {res.scheduled}/{res.num_measured_pods} bound in "
+        f"{res.duration_s:.3f} s = {res.throughput_pods_per_s:.1f} pods/s; "
+        f"{res.n_batches} batches, serial kernel {res.kernel_total_s:.3f} s = "
+        f"{per_batch:.3f} s per batch; e2e p50/p99 {res.e2e_p50_ms:.1f}/"
+        f"{res.e2e_p99_ms:.1f} ms; encode {res.encode_total_s:.3f} s; K1 launches "
+        f"{k1}, K2 launches {k2}; guard trips {res.guard_trips}, unwound assumes "
+        f"{res.unwound_assumes}; card {card}")
+    errors.check("serial")
+    if res.scheduled != res.num_measured_pods or res.unscheduled:
+        raise AssertionError(f"[serial] {res.unscheduled} measured pods not bound")
+    if res.guard_trips or res.unwound_assumes:
+        raise AssertionError(f"[serial] {res.guard_trips} guard trips")
+    check_bindings(server, wl.num_measured_pods, "serial")
+    return {"res": res, "k1": k1, "k2": k2, "per_batch_s": per_batch}
+
+
+def phase_preempt(device, card: str, errors: ErrorLog) -> dict:
+    """run_preemption_benchmark at the reference's defaults: 1,000 full
+    nodes (4 x 1-cpu priority-0 pods each), a burst of 1,000 2-cpu
+    priority-100 pods. Fails unless every preemptor is bound, the batched
+    pass served attempts, no kernel_error fallback and no guard trip."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_preemption_benchmark
+
+    fit_kernels.fit_mask.launches = 0
+    fit_kernels.fit_mask_least_alloc.launches = 0
+    res = run_preemption_benchmark(device=device, timeout_s=600)
+    k1 = fit_kernels.fit_mask.launches
+    k2 = fit_kernels.fit_mask_least_alloc.launches
+    log(f"[preempt] {res.num_nodes} full nodes, burst {res.burst_pods}: "
+        f"scheduled {res.scheduled}, all bound in {res.time_to_all_bound_s:.3f} s; "
+        f"victims evicted {res.victims_evicted}; select batches "
+        f"{res.select_batches}; vector attempts {res.vector_attempts}; host-walk "
+        f"fallbacks {res.host_walk_fallbacks} (by reason "
+        f"{json.dumps(res.fallbacks_by_reason, sort_keys=True)}); guard trips "
+        f"{res.guard_trips}; oracle divergences {res.oracle_divergences}; select "
+        f"p50/p99 {res.select_p50_ms:.3f}/{res.select_p99_ms:.3f} ms; K1 launches "
+        f"{k1}, K2 launches {k2}; card {card}")
+    errors.check("preempt")
+    if res.scheduled != res.burst_pods:
+        raise AssertionError(f"[preempt] {res.scheduled}/{res.burst_pods} bound")
+    if res.vector_attempts <= 0:
+        raise AssertionError("[preempt] the batched victim selection served no attempt")
+    if res.fallbacks_by_reason.get("kernel_error", 0):
+        raise AssertionError("[preempt] kernel_error fallbacks")
+    if res.guard_trips:
+        raise AssertionError(f"[preempt] {res.guard_trips} guard trips")
+    return {"res": res, "k1": k1, "k2": k2}
+
+
+def phase_standby(device, card: str, errors: ErrorLog) -> dict:
+    """A warm standby on SchedulingPodAffinity/5000's cluster (5,000 nodes,
+    its 1,000 initial pods bound): start_standby(), 500 measured pods
+    queued while it stands by, promote(), every one bound. Fails unless
+    the standby pre-warmed exactly once and all 500 are bound."""
+    from kubernetes_tpu_torch.client.apiserver import APIServer
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import default_config
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.scheduler.ha import COUNTER_STANDBY_WARMUPS
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    wl = WORKLOADS["SchedulingPodAffinity/5000"]
+    nodes, init_pods, factory = build_workload(wl)
+    server = APIServer()
+    for n in nodes:
+        server.create("nodes", n)
+    for i, p in enumerate(init_pods):
+        p.spec.node_name = nodes[(7 * i) % len(nodes)].metadata.name
+        server.create("pods", p)
+    metrics.reset()
+    sched = Scheduler(server, default_config(), device=device)
+    fit_kernels.fit_mask.launches = 0
+    fit_kernels.fit_mask_least_alloc.launches = 0
+    n_pods = 500
+    try:
+        t0 = time.perf_counter()
+        sched.start_standby(identity="standby")
+        warm_s = time.perf_counter() - t0
+        warmups = metrics.counter(COUNTER_STANDBY_WARMUPS)
+        k1_warm = fit_kernels.fit_mask.launches
+        for i in range(n_pods):
+            server.create("pods", factory(i))
+        deadline = time.monotonic() + 60
+        while len(sched.queue) < n_pods and time.monotonic() < deadline:
+            time.sleep(0.01)
+        queued = len(sched.queue)
+        t1 = time.perf_counter()
+        sched.promote()
+        promote_ms = (time.perf_counter() - t1) * 1e3
+        deadline = time.monotonic() + 120
+        bound = 0
+        while time.monotonic() < deadline:
+            bound = server.count(
+                "pods", lambda p: p.metadata.name.startswith("pod-") and bool(p.spec.node_name)
+            )
+            if bound >= n_pods:
+                break
+            time.sleep(0.02)
+        bound_s = time.perf_counter() - t1
+    finally:
+        sched.stop()
+    k1 = fit_kernels.fit_mask.launches
+    k2 = fit_kernels.fit_mask_least_alloc.launches
+    adopted = metrics.counter("scheduler_ha_adoptions_total", {"outcome": "pending"})
+    log(f"[standby] {len(nodes)} nodes: start_standby (informer sync, snapshot, kernel "
+        f"pre-warm) {warm_s:.3f} s, standby warm-ups {warmups:.0f} (K1 launches "
+        f"{k1_warm}); {queued} pods queued while standing by; promote "
+        f"{promote_ms:.1f} ms (adopted {adopted:.0f} pending); {bound}/{n_pods} "
+        f"bound {bound_s:.3f} s after the promotion; K1 launches {k1}, K2 "
+        f"launches {k2}; card {card}")
+    errors.check("standby")
+    if warmups != 1:
+        raise AssertionError(f"[standby] {warmups} standby warm-ups, want 1")
+    if bound != n_pods:
+        raise AssertionError(f"[standby] {bound}/{n_pods} bound")
+    check_bindings(server, n_pods, "standby")
+    return {"k1": k1, "k2": k2, "warm_s": warm_s, "promote_ms": promote_ms}
 
 
 def main(argv=None) -> int:
@@ -782,6 +1017,7 @@ def main(argv=None) -> int:
     log(f"[K1] main-path shape: max |kernel - plain| {max_abs_err}")
 
     phase_parity(mp, device)
+    serial_batch_check(mp, device)
 
     res, k1_launches, k2_launches = phase_scheduler(device, card, errors)
     fit_kernels.fit_mask.launches = 0
@@ -793,6 +1029,21 @@ def main(argv=None) -> int:
     if k1_latency <= 0:
         raise AssertionError("[latency] the Scheduler never launched K1")
 
+    serial = phase_serial(device, card, errors)
+    preempt = phase_preempt(device, card, errors)
+    if preempt["k1"] <= 0:
+        raise AssertionError("[preempt] the burst's wave path never launched K1")
+    standby = phase_standby(device, card, errors)
+    if standby["k1"] <= 0:
+        raise AssertionError("[standby] the warm-up and the promoted loop never launched K1")
+
+    def launches(k):
+        return {
+            "launches_serial": serial[k],
+            "launches_preempt": preempt[k],
+            "launches_standby": standby[k],
+        }
+
     kernels = {
         "kernels": [
             {
@@ -802,6 +1053,7 @@ def main(argv=None) -> int:
                 "replaces": "kubernetes_tpu/ops/pallas_ops.py:120",
                 "launches": k1_launches,
                 "launches_latency": k1_latency,
+                **launches("k1"),
                 "max_abs_err": max_abs_err,
                 "ms": k1["ms"],
                 "plain_ms": k1["plain_ms"],
@@ -821,6 +1073,7 @@ def main(argv=None) -> int:
                 "path": "standalone",
                 "launches": k2_launches,
                 "launches_latency": k2_latency,
+                **launches("k2"),
                 "max_abs_err": k2["max_abs_err"],
                 "ms": k2["ms"],
                 "plain_ms": k2["plain_ms"],

@@ -18,11 +18,13 @@ private — the sealed live generation when no reader pins it, a fresh
 
 Not ported yet (later slices): ``whatif_overlay``, ``fetch_device_rows``,
 ``set_sharding``, ``warm_scatter_programs`` (an XLA-compile warmer with
-no counterpart here), ``swap_live_snapshot``, the PDB column refresh
-(``update_pdb_blocked``, for vector preemption) and the anti-entropy
+no counterpart here), ``swap_live_snapshot`` and the anti-entropy
 audit's device-row gather. ``add_pods_bulk`` (the cache's bulk assume),
-the row-aggregate repair the cache's unwind path calls, and
-``utilization_stats`` are copied from the reference.
+the row-aggregate repair the cache's unwind path calls,
+``utilization_stats`` and the PDB budget column refresh
+(``update_pdb_blocked``, read by ``ops/preemptlattice.py``; its rows go
+up with the next flush's dirty-row scatter) are copied from the
+reference.
 
 The reference's design notes follow.
 
@@ -645,6 +647,11 @@ class SnapshotEncoder:
         self._row_by_name: Dict[str, int] = {}
         self._free_rows: List[int] = []
         self._pods: Dict[int, Dict[str, _PodEntry]] = {}  # row -> pod-key -> entry
+        # True iff the last update_pdb_blocked pass saw any exhausted
+        # budget: lets the no-PDB-pressure common case skip the per-row
+        # recompute entirely (it runs under the cache lock per failed
+        # batch)
+        self._pdb_any_blocked = False
 
         self._alloc_masters()
         # generation bookkeeping lock: guards ONLY the pin/seal/install
@@ -1412,6 +1419,47 @@ class SnapshotEncoder:
         for i, pred in enumerate(self.sel_vocab.items):
             out[i] = pred.matches(namespace, labels)
         return out
+
+    def update_pdb_blocked(self, pdbs: List["v1.PodDisruptionBudget"]) -> int:
+        """Recompute the PDB budget column family (`pdb_blocked[N, PB]`)
+        from the disruption controller's CURRENT published budgets: a
+        placed pod counts as blocked when it matches any PDB whose
+        status.disruptions_allowed is already spent (<= 0). This is the
+        vectorized victim-selection kernel's node-DEPRIORITIZER, not the
+        oracle — the per-victim budget countdown (list-order consumption
+        across overlapping PDBs) stays in the host reprieve loop that
+        validates every candidate before eviction. Caller holds the cache
+        lock. Returns the number of rows whose column changed (each is
+        marked dirty for the next flush)."""
+        from ..api.selectors import match_labels as _match_labels
+
+        blocked = [
+            (pdb.metadata.namespace, pdb.spec.selector)
+            for pdb in pdbs
+            if pdb.status.disruptions_allowed <= 0
+        ]
+        if not blocked and not self._pdb_any_blocked:
+            # common case (no exhausted budgets, column already clear):
+            # skip the per-row matching entirely — this runs under the
+            # cache lock on every failed batch
+            return 0
+        changed = 0
+        for row, pods in self._pods.items():
+            want = np.zeros(self.cfg.pb_cap, np.int32)
+            if blocked:
+                for e in pods.values():
+                    for ns, sel in blocked:
+                        if ns == e.namespace and _match_labels(sel, e.labels):
+                            want[e.prio_band] += 1
+                            break
+            if not np.array_equal(self.m_pdb_blocked[row], want):
+                self.m_pdb_blocked[row] = want
+                self._dirty_rows.add(row)
+                changed += 1
+        self._pdb_any_blocked = bool(blocked)
+        if changed:
+            self.generation += 1
+        return changed
 
     # -- device sync ---------------------------------------------------------
 

@@ -1,22 +1,42 @@
-"""Score constants, Stage-A filter/score primitives and kernel-output guards.
+"""Score constants, Stage-A filter/score primitives, the serial batch
+kernel and the kernel-output guards.
 
-Port of the part of ``kubernetes_tpu/ops/lattice.py`` that the wave kernel
-imports (``wavelattice.py:57-75``) plus the batch guards the scheduler runs
-on every read-back result. The serial scan lattice
-(``make_schedule_batch_raw``, ``make_schedule_batch``) is a later slice;
-the preemption what-if (``preempt_whatif``) serves the Scheduler's
-failure path.
+Port of ``kubernetes_tpu/ops/lattice.py``: the Stage-A helpers the wave
+kernel imports (``wavelattice.py:57-75``), ``_pod_static`` (the one
+definition of Stage A that the serial kernel, the preemption what-if and
+the victim selection of ``ops/preemptlattice.py`` share), the serial
+scan lattice (``make_schedule_batch_raw`` / ``make_schedule_batch``, the
+``use_wave=False`` path and the warm standby's pre-warm), the preemption
+what-if (``preempt_whatif``) and the batch guards the scheduler runs on
+every read-back result.
 
 The reference evaluates one pod (or template) per call and ``jax.vmap``s
 over the batch. Here every primitive takes a ``PodBatch`` whose fields
 carry a leading template axis ``[B, ...]`` and returns ``[B, N]`` — the
 batch dimension written out. Node-axis gathers read the snapshot's
 transposed columns (``label_vals.T[key]``) so the node axis lands last.
+
+The serial kernel (``ScheduleBatch``) is the reference's ``lax.scan`` over
+pods as a Python loop whose every step is vectorized over its term axes:
+the spread, incoming (anti-)affinity, preferred and existing-pod terms of
+one pod go through ONE ``scatter_add_`` into a ``[terms, v_cap + 1]``
+buffer (the spare segment takes the rows the reference's ``segment_sum``
+drops). The loop issues no host sync: the chosen row, the gate and every
+carry update stay on the device (``index_add_`` at the chosen row, adding
+zeros when the pod is not placed). The integer carries (free resources,
+scoring requests, predicate counts, host ports) are kept summed with the
+snapshot's columns, which equals the reference's ``snapshot + carry`` in
+integer arithmetic; the float existing-term weights keep the reference's
+separate carry. The per-pod ``jax.random.split`` / ``uniform`` tie noise is
+an input: a ``[P, N]`` float32 tensor in [0, 1) on the snapshot's device.
+XLA's CPU reduce of the weighted score components is a fused
+multiply-add chain; ``_dot_fma`` reproduces it.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +53,12 @@ from .encoding import (
     ENC_OP_LT,
     ENC_OP_NOT_EXISTS,
     ENC_OP_NOT_IN,
+    ETERM_AFF_PREF,
+    ETERM_AFF_REQ,
+    ETERM_ANTI_PREF,
+    ETERM_ANTI_REQ,
+    RES_CPU,
+    RES_MEM,
     PodBatch,
 )
 
@@ -167,6 +193,27 @@ def register_weight_profile(
 
 IMG_MIN_THRESHOLD = 23.0 * 1024 * 1024  # imagelocality minThreshold
 IMG_MAX_THRESHOLD = 1000.0 * 1024 * 1024
+
+
+class BatchResult(NamedTuple):
+    chosen: Any  # [P] int32 node row, -1 = unschedulable (or invalid pod)
+    score: Any  # [P] float32 winning weighted score
+    feasible_count: Any  # [P] int32 number of feasible nodes at decision time
+    resolvable: Any  # [P, N] bool — infeasible but preemption might help
+    # (passes all UnschedulableAndUnresolvable-class filters)
+
+
+def _dot_fma(coef, mats):
+    """Σ_k coef[..., k] * mats[k] in the order of XLA's CPU reduction: a
+    sequential fused multiply-add chain rounded to float32 at every step
+    (each product is exact in float64, each sum rounds once).
+    coef [..., K] (broadcast against mats[k]), mats [K, ...] float32."""
+    coef = coef.double()
+    acc = None
+    for k in range(mats.shape[0]):
+        term = coef[..., k, None] * mats[k]
+        acc = (term if acc is None else term + acc).float()
+    return acc
 
 
 # ---------------------------------------------------------------------------
@@ -304,6 +351,335 @@ def _prefer_avoid(snap, bp: PodBatch) -> torch.Tensor:
     return torch.where(avoided, 0.0, 100.0)
 
 
+# Stage A runs over the batch in chunks of pods so that its largest
+# intermediate (the [B, terms, exprs, N] node-affinity expression planes,
+# the [B, tolerations, N, taints] toleration match) stays near this many
+# elements: a 4096-pod batch over 8192 rows would otherwise hold several
+# of them at GiBs each. Chunking changes no value.
+_STAGE_A_ELEMENTS = 1 << 26
+
+
+def _pod_static_chunk(snap: DeviceSnapshot, bp: PodBatch) -> Tuple:
+    n = snap.valid.shape[0]
+    rows = torch.arange(n, device=snap.valid.device)
+    ns_aff = _node_affinity_required(snap, bp)
+    taint_ok, prefer_cnt = _taints(snap, bp)
+    unsched_ok = ~snap.unschedulable[None, :] | bp.tolerates_unschedulable[:, None]
+    nr = bp.node_name_row[:, None]
+    name_ok = torch.where(
+        nr == -1, True, torch.where(nr < 0, False, rows[None, :] == nr)
+    )
+    static_ok = snap.valid[None, :] & ns_aff & taint_ok & unsched_ok & name_ok
+    # Scores computed regardless of feasibility; normalization masks later.
+    aff_score = _node_affinity_score(snap, bp)
+    img = _image_locality(snap, bp)
+    avoid = _prefer_avoid(snap, bp)
+    return static_ok, ns_aff, aff_score, prefer_cnt, img, avoid
+
+
+def _pod_static(snap: DeviceSnapshot, batch: PodBatch) -> Tuple:
+    """Stage A for a batch: static mask/score pieces, each [P, N].
+    Returns (static_ok, ns_aff_mask, aff_score, prefer_cnt, img, avoid).
+    Shared by the schedule kernel, the preemption what-if and the victim
+    selection (static_ok is exactly the UnschedulableAndUnresolvable
+    boundary: nodes failing it cannot be helped by evictions,
+    generic_scheduler.go:1033)."""
+    n = snap.valid.shape[0]
+    p = batch.valid.shape[0]
+    width = max(
+        batch.aff_key.shape[1] * batch.aff_key.shape[2],
+        batch.pref_key.shape[1] * batch.pref_key.shape[2],
+        batch.tol_key.shape[1] * snap.taint_key.shape[1],
+        batch.image_ids.shape[1],
+        1,
+    )
+    step = max(1, _STAGE_A_ELEMENTS // (width * max(n, 1)))
+    if p <= step:
+        return _pod_static_chunk(snap, batch)
+    parts = [
+        _pod_static_chunk(snap, PodBatch(*(f[s:s + step] for f in batch)))
+        for s in range(0, p, step)
+    ]
+    return tuple(torch.cat(x) for x in zip(*parts))
+
+
+# ---------------------------------------------------------------------------
+# stage B primitives (carry-dependent)
+# ---------------------------------------------------------------------------
+
+
+def _gather_counts(counts: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
+    """[K, N] float pod-match counts for predicates sid [K] (< 0 → zeros);
+    counts [N, S] is the live count (the reference's counts + extra)."""
+    c = counts.T[sid.clamp(0, counts.shape[1] - 1).long()]
+    return torch.where((sid >= 0)[:, None], c.to(torch.float32), 0.0)
+
+
+def _domain_ops(dom: torch.Tensor, weights: torch.Tensor, ok: torch.Tensor, v_cap: int):
+    """Per-topology-domain reduction for K terms at once (the reference's
+    per-term ``_domain_ops``, vmapped): ``weights`` [K, N] are summed per
+    domain (dom [K, N], the node's value id of each term's topology key,
+    -1 = key absent) over the nodes where ``ok`` (has the key and is
+    eligible). One scatter_add_ into [K, v_cap + 1]; the spare segment
+    v_cap takes the rows the reference's segment_sum drops. Returns
+    (node_sum [K, N], sums [K, v_cap], seg [K, N])."""
+    seg = torch.where(ok, dom, v_cap).clamp(max=v_cap).long()
+    sums = torch.zeros(
+        (dom.shape[0], v_cap + 1), dtype=torch.float32, device=dom.device
+    ).scatter_add_(1, seg, torch.where(ok, weights, 0.0))[:, :v_cap]
+    node_sum = torch.where(
+        dom >= 0, sums.gather(1, dom.clamp(0, v_cap - 1).long()), 0.0
+    )
+    return node_sum, sums, seg
+
+
+class ScheduleBatch:
+    """The serial batch kernel for a domain-segment capacity (the
+    reference's ``make_schedule_batch_raw`` closure). Call it as
+    ``kernel(snap, batch, weights, noise)``: ``weights`` the [K] score
+    weight vector, ``noise`` the [P, N] float32 tie noise in [0, 1) on
+    the snapshot's device (the reference's per-pod ``uniform(key, (N,))``).
+    Pods are placed one after another, each seeing the batch's earlier
+    placements (the scan carry). The snapshot is read, never written.
+    Returns a BatchResult."""
+
+    def __init__(self, v_cap: int, hard_pod_affinity_weight: float = 1.0):
+        self.v_cap = v_cap
+        self.hard_pod_affinity_weight = float(hard_pod_affinity_weight)
+
+    def __call__(self, snap: DeviceSnapshot, batch: PodBatch, weights, noise) -> BatchResult:
+        v_cap = self.v_cap
+        dev = snap.valid.device
+        f32 = torch.float32
+        n = snap.valid.shape[0]
+        p = batch.valid.shape[0]
+        if tuple(noise.shape) != (p, n):
+            raise ValueError(f"tie noise is {tuple(noise.shape)}, want {(p, n)}")
+        weights = torch.as_tensor(weights, dtype=f32).to(dev)
+        static_ok, ns_aff, aff_score, prefer_cnt, img, avoid = _pod_static(snap, batch)
+
+        # ---- batch-invariant pieces ----
+        valid = snap.valid
+        r = snap.allocatable.shape[1]
+        s_cap = snap.sel_counts.shape[1]
+        lv_t = snap.label_vals.T  # [L, N]
+        n_keys = lv_t.shape[0]
+
+        def dom_of(key):  # [K] topology key ids -> [K, N] value ids, -1 absent
+            return torch.where(
+                (key < 0)[:, None], -1, lv_t[key.clamp(0, n_keys - 1).long()]
+            )
+
+        dom_e = dom_of(snap.eterm_topo_key)  # [T, N]
+        e_anti = snap.eterm_kind == ETERM_ANTI_REQ
+        sgn = torch.zeros(snap.eterm_kind.shape, dtype=f32, device=dev)
+        for kind, val in (
+            (ETERM_ANTI_PREF, -1.0),
+            (ETERM_AFF_PREF, 1.0),
+            (ETERM_AFF_REQ, self.hard_pod_affinity_weight),
+        ):
+            sgn = torch.where(snap.eterm_kind == kind, val, sgn)
+        alloc_f = snap.allocatable.to(f32).clamp(min=1.0)
+        alloc_cpu, alloc_mem = alloc_f[:, RES_CPU], alloc_f[:, RES_MEM]
+        cost_f = snap.cost_milli.to(f32)
+        energy_f = snap.energy_milli.to(f32)
+
+        # the pod's own terms on one axis: spread C | affinity A | anti B |
+        # preferred W; the existing pods' T terms follow in every step
+        n_c = batch.spread_key.shape[1]
+        n_a = batch.paff_sid.shape[1]
+        n_b = batch.panti_sid.shape[1]
+        a0, b0, w0 = n_c, n_c + n_a, n_c + n_a + n_b
+        k_pod = w0 + batch.ppref_sid.shape[1]
+        pkey = torch.cat(
+            [batch.spread_key, batch.paff_key, batch.panti_key, batch.ppref_key], 1
+        )
+        psid = torch.cat(
+            [batch.spread_sid, batch.paff_sid, batch.panti_sid, batch.ppref_sid], 1
+        )
+        s_active = batch.spread_key >= 0
+        s_hard = s_active & batch.spread_hard
+        s_soft = (s_active & ~batch.spread_hard).to(f32)
+        s_self = torch.where(batch.spread_self, 1.0, 0.0)
+        s_skew = batch.spread_skew.to(f32)
+        a_used = batch.paff_sid >= 0
+        b_used = batch.panti_sid >= 0
+        w_pref = torch.where(batch.ppref_sid >= 0, batch.ppref_w, 0.0)
+        e_bad_of = batch.match_eterm & e_anti[None, :]  # [P, T]
+        e_sgn = torch.where(batch.match_eterm, sgn[None, :], 0.0)  # [P, T]
+        nz_cpu = batch.nonzero_req[:, RES_CPU]
+        nz_mem = batch.nonzero_req[:, RES_MEM]
+
+        # integer carry, summed with the snapshot: free | scoring requests
+        # | predicate counts | host ports; `delta` is each pod's commit
+        cur = torch.cat(
+            [
+                snap.allocatable - snap.requested,
+                snap.nonzero_req,
+                snap.sel_counts,
+                snap.port_counts,
+            ],
+            1,
+        )
+        free_c = cur[:, :r]
+        nz_c = cur[:, r:2 * r]
+        sel_c = cur[:, 2 * r:2 * r + s_cap]
+        port_c = cur[:, 2 * r + s_cap:]
+        delta = torch.cat(
+            [
+                -batch.req,
+                batch.nonzero_req,
+                batch.match_sel.to(torch.int32),
+                batch.port_mask.to(torch.int32),
+            ],
+            1,
+        )
+        et_x = torch.zeros_like(snap.eterm_w)
+        inf = float("inf")
+
+        def norm_max(x, feasible):
+            mx = torch.where(feasible, x, -inf).amax()
+            safe = torch.where(torch.isfinite(mx) & (mx > 0), mx, 1.0)
+            return (x / safe * 100.0).clamp(0.0, 100.0)
+
+        def norm_invert(x, feasible):  # lower raw -> higher score
+            mx = torch.where(feasible, x, -inf).amax()
+            ok = torch.isfinite(mx) & (mx > 0)
+            safe = torch.where(ok, mx, 1.0)
+            return torch.where(ok, (safe - x) / safe * 100.0, 100.0)
+
+        chosen_out, score_out, feas_out = [], [], []
+        resolvable = torch.empty((p, n), dtype=torch.bool, device=dev)
+        for i in range(p):
+            # --- NodeResourcesFit, NodePorts ---
+            req = batch.req[i]
+            fits = ((req == 0) | (req <= free_c)).all(dim=1)
+            port_conflict = (batch.port_mask[i] & (port_c > 0)).any(dim=1)
+
+            # --- every domain term of this step: one scatter ---
+            dom = torch.cat([dom_of(pkey[i]), dom_e])  # [K, N]
+            w = torch.cat(
+                [_gather_counts(sel_c, psid[i]), (snap.eterm_w + et_x).T]
+            )
+            has_key = dom >= 0
+            ok = has_key & valid
+            ok[:n_c] &= ns_aff[i]  # spread counts only affinity-eligible nodes
+            node_sum, sums, seg = _domain_ops(dom, w, ok, v_cap)
+
+            # --- PodTopologySpread (podtopologyspread/filtering.go) ---
+            present = torch.zeros(
+                (n_c, v_cap + 1), dtype=torch.int32, device=dev
+            ).scatter_reduce_(1, seg[:n_c], ok[:n_c].to(torch.int32), "amax")
+            min_dom = torch.where(present[:, :v_cap] > 0, sums[:n_c], inf).amin(dim=1)
+            m = torch.where(torch.isfinite(min_dom), min_dom, 0.0)
+            ns_s = node_sum[:n_c]
+            skewed = ns_s + s_self[i, :, None] - m[:, None] > s_skew[i, :, None]
+            hard_bad = s_hard[i, :, None] & (skewed | ~has_key[:n_c])
+            spread_ok = ~hard_bad.any(dim=0)
+            spread_penalty = (s_soft[i, :, None] * ns_s).sum(dim=0)
+
+            # --- InterPodAffinity: the incoming pod's required terms ---
+            ns_a = node_sum[a0:b0]
+            total_a = sums[a0:b0].sum(dim=1)
+            aff_ok = (
+                ~a_used[i, :, None]
+                | (ns_a > 0)
+                | ((total_a == 0) & batch.paff_self[i])[:, None] & has_key[a0:b0]
+            ).all(dim=0)
+            anti_bad = (
+                b_used[i, :, None] & has_key[b0:w0] & (node_sum[b0:w0] > 0)
+            ).any(dim=0)
+
+            # --- existing pods' terms (eterms) + incoming preferred terms ---
+            ns_e = node_sum[k_pod:]
+            eterm_bad = (e_bad_of[i, :, None] & has_key[k_pod:] & (ns_e > 0)).any(dim=0)
+            interpod = (e_sgn[i, :, None] * ns_e).sum(dim=0) + (
+                w_pref[i, :, None] * node_sum[w0:k_pod]
+            ).sum(dim=0)
+
+            # --- combine mask ---
+            feasible = (
+                static_ok[i] & fits & ~port_conflict & spread_ok & aff_ok
+                & ~anti_bad & ~eterm_bad
+            )
+            # preemption-candidate nodes: fail only resolvable filters
+            torch.logical_and(static_ok[i], ~feasible, out=resolvable[i])
+
+            # --- scores (normalized 0..100 over feasible, framework.go:503-580) ---
+            # resource scores include the incoming pod (least_allocated.go:77-99)
+            cpu_f = ((nz_c[:, RES_CPU] + nz_cpu[i]).to(f32) / alloc_cpu).clamp(0.0, 1.0)
+            mem_f = ((nz_c[:, RES_MEM] + nz_mem[i]).to(f32) / alloc_mem).clamp(0.0, 1.0)
+            least = ((1.0 - cpu_f) * 100.0 + (1.0 - mem_f) * 100.0) / 2.0
+            most = (cpu_f * 100.0 + mem_f * 100.0) / 2.0
+            balanced = (1.0 - (cpu_f - mem_f).abs()) * 100.0
+            # requested-to-capacity-ratio, default shape {0:0, 100:10}
+            # scaled to 0..100 (requested_to_capacity_ratio.go:33)
+            util = (cpu_f + mem_f) / 2.0 * 100.0
+            rtc = util / 100.0 * 10.0 * 10.0
+            # interpod: shift-free max-|score| normalization
+            # (interpodaffinity/scoring.go:287-310)
+            ip_max = torch.where(feasible, interpod.abs(), 0.0).amax()
+            ip_norm = torch.where(ip_max > 0, interpod / ip_max * 100.0, 0.0)
+            # DefaultPodTopologySpread: same-service pods per node; MAX over
+            # the matching services
+            svc_cnt = torch.where(
+                batch.match_svc[i][None, :], sel_c.to(f32), 0.0
+            ).amax(dim=1)
+            comps = torch.stack(
+                [
+                    least,
+                    most,
+                    balanced,
+                    rtc,
+                    norm_max(aff_score[i], feasible),
+                    norm_invert(prefer_cnt[i], feasible),
+                    img[i],
+                    avoid[i],
+                    norm_invert(spread_penalty, feasible),
+                    ip_norm,
+                    norm_invert(svc_cnt, feasible),
+                    norm_invert(cost_f, feasible),
+                    norm_invert(energy_f, feasible),
+                ]
+            )  # [K, N]
+            total_score = _dot_fma(weights, comps)
+
+            # --- select: argmax with uniform random tie-break ---
+            keyed = torch.where(feasible, total_score, -inf)
+            best = keyed.amax()
+            pick = torch.where(feasible & (keyed == best), noise[i], -1.0)
+            chosen = pick.argmax()
+            feas_count = feasible.sum(dtype=torch.int32)
+            placed = (feas_count > 0) & batch.valid[i]
+            chosen_out.append(torch.where(placed, chosen, -1))
+            score_out.append(torch.where(placed, best, -inf))
+            feas_out.append(feas_count)
+
+            # --- commit to the carry: zeros when not placed ---
+            row = chosen.view(1)
+            cur.index_add_(0, row, (delta[i] * placed)[None])
+            et_x.index_add_(0, row, (batch.eterm_add[i] * placed)[None])
+
+        return BatchResult(
+            chosen=torch.stack(chosen_out).to(torch.int32),
+            score=torch.stack(score_out),
+            feasible_count=torch.stack(feas_out),
+            resolvable=resolvable,
+        )
+
+
+@functools.lru_cache(maxsize=32)
+def make_schedule_batch_raw(v_cap: int, hard_pod_affinity_weight: float = 1.0):
+    """The serial batch kernel for a domain-segment capacity, cached per
+    (v_cap, weight): a callable ``(snap, batch, weights, noise) ->
+    BatchResult`` (see :class:`ScheduleBatch`)."""
+    return ScheduleBatch(v_cap, hard_pod_affinity_weight)
+
+
+# The reference jits make_schedule_batch_raw here; eager torch runs it as is.
+make_schedule_batch = make_schedule_batch_raw
+
+
 def preempt_whatif(
     snap: DeviceSnapshot, batch: PodBatch, priority: torch.Tensor
 ) -> torch.Tensor:
@@ -311,22 +687,13 @@ def preempt_whatif(
     ``_preempt_whatif``, SURVEY §7.6): would pod (or template) b fit node n
     if every pod of lower priority there were evicted? OPTIMISTIC — it
     accounts resources (the priority-banded requested matrix) and the
-    static UnschedulableAndUnresolvable filters, not affinity/spread terms
-    contributed by would-be victims; the host reprieve loop re-checks the
-    surviving candidates exactly, so false positives cost time, never
-    correctness. `priority` [B] int32 rides outside the batch tensors.
-    The [B, N, R] removable sum is a broadcast sum, not an einsum: CUDA
-    has no integer matmul."""
-    n = snap.valid.shape[0]
-    rows = torch.arange(n, device=snap.valid.device)
-    ns_aff = _node_affinity_required(snap, batch)
-    taint_ok, _prefer = _taints(snap, batch)
-    unsched_ok = ~snap.unschedulable[None, :] | batch.tolerates_unschedulable[:, None]
-    nr = batch.node_name_row[:, None]
-    name_ok = torch.where(
-        nr == -1, True, torch.where(nr < 0, False, rows[None, :] == nr)
-    )
-    static_ok = snap.valid[None, :] & ns_aff & taint_ok & unsched_ok & name_ok
+    static UnschedulableAndUnresolvable filters (Stage A's static_ok), not
+    affinity/spread terms contributed by would-be victims; the host
+    reprieve loop re-checks the surviving candidates exactly, so false
+    positives cost time, never correctness. `priority` [B] int32 rides
+    outside the batch tensors. The [B, N, R] removable sum is a broadcast
+    sum, not an einsum: CUDA has no integer matmul."""
+    static_ok = _pod_static(snap, batch)[0]
     # removable[b, n, r] = sum over bands k with band_prio[k] < prio_b of
     # prio_req[n, k, r]
     removable_band = snap.band_prio[None, :] < priority[:, None]  # [B, PB]

@@ -35,10 +35,10 @@ Where the two frameworks differ, and what this port does about it:
 * The JAX side runs with x64 off: index math here may run in int64, but
   every output and every snapshot field keeps the reference's dtype.
 * The weighted score sum is XLA's dot, which on the CPU is a sequential
-  fused multiply-add over the components; ``_dot_fma`` forms each step's
-  product and sum exactly (float64) and rounds once to float32, so equal
-  scores stay equal across the two implementations and the candidate
-  tie groups (exact float equality of ``top_v``) match. Elementwise
+  fused multiply-add over the components; ``_dot_fma`` (``ops/lattice.py``)
+  forms each step's product and sum in float64 and rounds once to float32,
+  so equal scores stay equal across the two implementations and the
+  candidate tie groups (exact float equality of ``top_v``) match. Elementwise
   chains XLA may contract differently; near-tie chosen nodes can then
   differ inside a ``TIE_EPS`` group, never outside one.
 * The reference draws its tie noise inside the kernel
@@ -80,6 +80,7 @@ from .lattice import (
     SC_LEAST_ALLOC,
     SC_MOST_ALLOC,
     SC_REQ_TO_CAP,
+    _dot_fma,
     _image_locality,
     _label_cols,
     _node_affinity_required,
@@ -135,17 +136,6 @@ def _interp(x, xp, fp):
     )
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
-
-
-def _dot_fma(coef, mats):
-    """Σ_k coef[..., k] * mats[k] in the order of XLA's CPU dot: a
-    sequential fused multiply-add chain rounded to float32 at every step.
-    coef [..., K] (broadcast against mats[k]), mats [K, ...]."""
-    acc = None
-    for k in range(mats.shape[0]):
-        term = coef[..., k, None].double() * mats[k].double()
-        acc = (term if acc is None else term + acc).float().double()
-    return acc.float()
 
 
 def _pair_verdicts(pt: PairTable, cnt, min_d, tot, dom):

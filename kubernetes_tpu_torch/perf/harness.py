@@ -1,20 +1,22 @@
 """Benchmark harness: in-process topology, throughput + latency collection.
 
 PyTorch port of ``kubernetes_tpu/perf/harness.py``: ``run_benchmark`` (what
-``bench.py`` measures), ``run_latency_benchmark`` and their result types,
-over the port's ``APIServer``, informers and ``Scheduler``. Each entry takes
-``device`` (``None`` means the CUDA card and raises without one; the tests
-pass ``device="cpu"``). The default scheduler configuration is the
-reference's with ``vector_preemption=False`` and ``antientropy_period_s=0``
-(ROADMAP queue 1 items 4 and 6). ``trace_dir`` (the reference's
-``xplane_dir``) records a ``torch.profiler`` trace of the run body as a
-Chrome trace. The autoscaler, read-path, serving, preemption, heterogeneity,
-tuner, durability and defragmentation benchmarks wait for their modules.
-Both entries count the kernel-output guard trips and the trailing unwound
-assumes of the whole run into their result and raise ``KernelGuardFailure``
-(carrying that result) when either is above 0: a batch whose kernel output
-failed the guards was requeued, so its numbers would not describe a
-correct kernel.
+``bench.py`` measures), ``run_latency_benchmark``,
+``run_preemption_benchmark`` and their result types, over the port's
+``APIServer``, informers and ``Scheduler``. Each entry takes ``device``
+(``None`` means the CUDA card and raises without one; the tests pass
+``device="cpu"``). The default scheduler configuration is the reference's
+with ``antientropy_period_s=0`` (the snapshot auditor is ROADMAP queue 1
+item 6). ``trace_dir`` (the reference's ``xplane_dir``) records a
+``torch.profiler`` trace of the run body as a Chrome trace. The autoscaler,
+read-path, serving, heterogeneity, tuner, durability and defragmentation
+benchmarks wait for their modules. The throughput and latency entries
+count the kernel-output guard trips and the trailing unwound assumes of
+the whole run into their result and raise ``KernelGuardFailure`` (carrying
+that result) when either is above 0: a batch whose kernel output failed
+the guards was requeued, so its numbers would not describe a correct
+kernel. The preemption entry reports its own guard trips and fallbacks by
+reason, as the reference's does.
 
 The reference's notes follow.
 
@@ -31,7 +33,7 @@ from __future__ import annotations
 import os
 import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from ..api.objects import Pod
 from ..client.apiserver import APIServer
@@ -81,9 +83,8 @@ def _check_guards(result):
 
 def default_config(**overrides) -> KubeSchedulerConfiguration:
     """The reference's defaults minus what the port does not run yet:
-    vector preemption (ROADMAP queue 1 item 4) and the snapshot auditor
-    (item 6)."""
-    kw = dict(vector_preemption=False, antientropy_period_s=0)
+    the snapshot auditor (ROADMAP queue 1 item 6)."""
+    kw = dict(antientropy_period_s=0)
     kw.update(overrides)
     return KubeSchedulerConfiguration(**kw)
 
@@ -494,6 +495,148 @@ def _stage_waterfall(e2e_h) -> tuple:
     if not sums:
         return waterfall, 0.0
     return waterfall, (sum(sums) / len(sums)) / e2e_h.avg
+
+
+@dataclass
+class PreemptionBenchResult:
+    """The `preemption` bench workload: a high-priority burst over a FULL
+    cluster — every placement requires displacing lower-priority victims.
+    The acceptance shape: victims resolve through the batched vectorized
+    pass (select_batches stays per-wave, not per-pod; zero full host
+    walks on the happy path)."""
+
+    num_nodes: int
+    burst_pods: int
+    scheduled: int
+    time_to_all_bound_s: float
+    victims_evicted: int
+    select_batches: int  # batched preempt_select launches (per-wave)
+    vector_attempts: int  # preemption attempts served by the batched pass
+    host_walk_fallbacks: int  # full per-pod host walks (happy path: 0)
+    guard_trips: int
+    oracle_divergences: int
+    select_p50_ms: float
+    select_p99_ms: float
+    # scheduler_preemption_fallback_total by reason (oracle_reject,
+    # kernel_error, group_overflow, batch_saturated)
+    fallbacks_by_reason: Dict[str, int] = field(default_factory=dict)
+
+
+def run_preemption_benchmark(
+    n_nodes: int = 1000,
+    burst: int = 1000,
+    timeout_s: float = 600.0,
+    sched_config: Optional[KubeSchedulerConfiguration] = None,
+    device: DeviceLike = None,
+    server: Optional[APIServer] = None,
+) -> PreemptionBenchResult:
+    """1k-pending high-priority burst over a full 1k-node cluster: every
+    node carries 4x 1-cpu priority-0 pods (pre-bound, store-acked), the
+    burst pods need 2 cpu each at priority 100 — nothing places without
+    victim selection. Reports time-to-all-bound plus the engine's
+    batched-pass accounting. device: None means the CUDA card (raises
+    without one). server: an empty APIServer to run on; None makes a
+    fresh one."""
+    from ..api import objects as v1
+
+    dev = resolve_device(device)
+    metrics.reset()
+    server = server if server is not None else APIServer()
+    sched = Scheduler(server, sched_config or default_config(), device=dev)
+    for i in range(n_nodes):
+        server.create(
+            "nodes",
+            v1.Node(
+                metadata=v1.ObjectMeta(name=f"pn{i}", namespace=""),
+                status=v1.NodeStatus(
+                    allocatable={"cpu": "4", "memory": "32Gi", "pods": 110}
+                ),
+            ),
+        )
+    # the resident victims arrive PRE-BOUND (store-acked like the
+    # throughput harness): the bench measures displacement, not the
+    # initial fill
+    for i in range(n_nodes):
+        for k in range(4):
+            p = Pod(
+                metadata=v1.ObjectMeta(name=f"low-{i}-{k}"),
+                spec=v1.PodSpec(
+                    containers=[v1.Container(requests={"cpu": "1"})],
+                    priority=0,
+                    node_name=f"pn{i}",
+                ),
+            )
+            server.create("pods", p)
+    sched.start()
+    try:
+        for i in range(burst):
+            server.create(
+                "pods",
+                Pod(
+                    metadata=v1.ObjectMeta(name=f"hi-{i}"),
+                    spec=v1.PodSpec(
+                        containers=[v1.Container(requests={"cpu": "2"})],
+                        priority=100,
+                    ),
+                ),
+            )
+        t0 = time.monotonic()
+        deadline = t0 + timeout_s
+        bound = 0
+        while time.monotonic() < deadline:
+            pods, _ = server.list("pods")
+            bound = sum(
+                1
+                for p in pods
+                if p.metadata.name.startswith("hi-") and p.spec.node_name
+            )
+            if bound >= burst:
+                break
+            time.sleep(0.25)
+        elapsed = time.monotonic() - t0
+    finally:
+        sched.stop()
+
+    def _count(name, label_filter=None):
+        return int(
+            sum(
+                v
+                for _n, labels, v in metrics.snapshot_counters(name)
+                if label_filter is None or label_filter(labels)
+            )
+        )
+
+    by_reason: Dict[str, int] = {}
+    for _n, labels, v in metrics.snapshot_counters(
+        "scheduler_preemption_fallback_total"
+    ):
+        reason = labels.get("reason", "")
+        by_reason[reason] = by_reason.get(reason, 0) + int(v)
+    sel_h = metrics.histogram("scheduler_preemption_select_duration_seconds")
+    p50, p99 = sel_h.quantiles((0.5, 0.99)) if sel_h else (0.0, 0.0)
+    return PreemptionBenchResult(
+        num_nodes=n_nodes,
+        burst_pods=burst,
+        scheduled=bound,
+        time_to_all_bound_s=elapsed,
+        victims_evicted=_count("preemption_victims_total"),
+        select_batches=_count("scheduler_preemption_batches_total"),
+        vector_attempts=_count("scheduler_preemption_vector_hits_total"),
+        # only the reasons that actually run a full host walk count —
+        # batch_saturated is a skip (no walk), retried next wave
+        host_walk_fallbacks=_count(
+            "scheduler_preemption_fallback_total",
+            lambda labels: labels.get("reason")
+            in ("oracle_reject", "kernel_error", "group_overflow"),
+        ),
+        guard_trips=_count("scheduler_preemption_guard_trips_total"),
+        oracle_divergences=_count(
+            "scheduler_preemption_oracle_divergence_total"
+        ),
+        select_p50_ms=p50 * 1e3,
+        select_p99_ms=p99 * 1e3,
+        fallbacks_by_reason=by_reason,
+    )
 
 
 def _count_scheduled(server: APIServer) -> int:

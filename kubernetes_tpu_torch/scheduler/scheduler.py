@@ -26,21 +26,38 @@ reference's, method for method; what changed is the device half:
 * Accelerator settings (batch 4096, ``m_cand`` 512, the per-wave score
   refresh and the K1 fit kernel) follow ``device.type == "cuda"`` where the
   reference tests ``jax.default_backend() == "tpu"``.
+* ``use_wave=False`` runs the serial lattice (``ops/lattice.make_schedule_batch``,
+  a loop over pods on the device) through ``_schedule_batch_device``. Its
+  tie noise is an input too: a ``serial_noise(P, N)`` source, by default
+  ``torch.rand`` from the same device Generator (the reference splits the
+  batch key per pod). Split-phase, the ``chosen`` vector comes back through
+  a ``wavepath.HostCopy`` and the score trails behind it
+  (``_register_trailing(..., path="serial")``).
+* ``vector_preemption=True`` (the default) ranks a resolved wave's failed
+  pods' victims in one ``ops/preemptlattice.preempt_select`` pass over a
+  (template, priority)-grouped batch before the host Preemptor checks
+  the ranked nodes exactly.
+* The warm standby (``start_standby``) keeps the device snapshot in step
+  with the informers and launches the small-bucket wave kernel and the
+  serial kernel once with an unsatisfiable ghost pod before ``promote``.
 
 Not ported yet (construction raises ``NotImplementedError`` naming the
-ROADMAP queue 1 item): ``use_wave=False`` and the warm standby (item 3),
-``vector_preemption=True`` (item 4), ``host_callback_binds=True`` (item
-5), ``antientropy_period_s > 0`` and the device-loss retry ladder (item
-6), ``tune_policy=True`` (item 7), ``use_mesh`` over more than one device
+ROADMAP queue 1 item): ``host_callback_binds=True`` (item 5),
+``antientropy_period_s > 0`` and the device-loss retry ladder (item 6),
+``tune_policy=True`` (item 7), ``use_mesh`` over more than one device
 (item 8). Until item 6 an exception from a launch propagates to the loop
-(which logs "scheduling batch failed" and requeues the batch), a failed
-readback requeues its batches without a retry, and a batch that trips the
-kernel-output guards is counted in ``kernel_guard_trips_total`` and
-requeued for the device: it is never handed to the host path, and the
-device is never latched off (``device_loss_disable_after`` is read
-nowhere; its validation asks for a value of at least 1, so it has no "off"
-to refuse). The policy gym's wave recorder waits for item 7. The
-preemption what-if mask is ``ops/lattice.preempt_whatif`` on torch.
+(which logs "scheduling batch failed" and requeues the batch; on the
+serial path nothing was assumed before the launch either), a failed
+readback requeues its batches without a retry, and a wave batch that
+trips the kernel-output guards is counted in ``kernel_guard_trips_total``
+and requeued for the device. A serial batch that trips them is counted
+and quarantined to the host path, as in the reference (nothing of it was
+assumed). Neither latches the device off: the reference's
+``device_loss_disable_after`` latch (``_set_device_down``) is item 6, and
+the setting is read nowhere (its validation asks for a value of at least
+1, so it has no "off" to refuse). The policy gym's wave recorder waits for
+item 7. The preemption what-if mask is ``ops/lattice.preempt_whatif`` on
+torch.
 
 The reference's design notes follow.
 
@@ -83,7 +100,9 @@ from ..device import DeviceLike, resolve_device
 from ..runtime.consensus import DegradedWrites
 from ..controller.volume_scheduling import VolumeBinder
 from ..api.objects import Binding
-from ..ops.encoding import SnapshotEncoder
+from ..ops.batch import encode_pod_batch
+from ..ops.encoding import PodBatch, SnapshotEncoder
+from ..ops.preemptlattice import preempt_select, validate_preempt_outputs
 from ..ops.templates import TemplateCache, build_pair_table
 from ..ops.wavelattice import DEFAULT_RTC_SHAPE, make_wave_kernel
 from ..ops.lattice import (
@@ -101,6 +120,8 @@ from ..ops.lattice import (
     SC_SELECTOR_SPREAD,
     SC_TAINT,
     SC_TOPO_SPREAD,
+    make_schedule_batch,
+    preempt_whatif,
     validate_batch_outputs,
     validate_trailing_score,
     weights_for_policy,
@@ -121,7 +142,10 @@ from .ha import (
     COUNTER_ADOPTIONS,
     COUNTER_FENCED_BINDS,
     COUNTER_PROMOTIONS,
+    COUNTER_STANDBY_FLUSHES,
+    COUNTER_STANDBY_WARMUPS,
     GAUGE_ROLE,
+    GAUGE_STANDBY_SNAPSHOT_AGE,
 )
 from .wavepath import HostCopy, batch_waves, wave_bucket
 from . import eventhandlers
@@ -305,10 +329,6 @@ class _FencedBindSurface:
 def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
     """(setting, ROADMAP queue 1 item) pairs this port does not run yet."""
     out = []
-    if not cfg.use_wave:
-        out.append(("use_wave=False (the serial lattice)", 3))
-    if cfg.vector_preemption:
-        out.append(("vector_preemption=True", 4))
     if cfg.host_callback_binds:
         out.append(("host_callback_binds=True", 5))
     if cfg.antientropy_period_s > 0:
@@ -321,11 +341,13 @@ def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
 
 
 class Scheduler:
-    """device: where the snapshot and the wave kernel live; None means the
+    """device: where the snapshot and the kernels live; None means the
     CUDA card (raises without one), "cpu" runs on the CPU. noise: the wave
     kernel's tie-noise source, called as ``noise(P, m_c)`` for a
-    ``[P, m_c]`` float32 tensor in [0, 0.999) on the device (None: drawn
-    from a ``torch.Generator`` on the device seeded with ``seed``)."""
+    ``[P, m_c]`` float32 tensor in [0, 0.999) on the device; serial_noise:
+    the serial kernel's, called as ``serial_noise(P, N)`` for a ``[P, N]``
+    float32 tensor in [0, 1) (None: both drawn from a ``torch.Generator``
+    on the device seeded with ``seed``)."""
 
     def __init__(
         self,
@@ -334,6 +356,7 @@ class Scheduler:
         device: DeviceLike = None,
         noise: Optional[Callable[[int, int], torch.Tensor]] = None,
         seed: int = 0,
+        serial_noise: Optional[Callable[[int, int], torch.Tensor]] = None,
     ):
         self.cfg = config or KubeSchedulerConfiguration()
         self.cfg.validate()
@@ -433,6 +456,7 @@ class Scheduler:
         # the [P, m_c] noise tensor the kernel takes as input
         self._rng = torch.Generator(device=self.device).manual_seed(seed)
         self._noise = noise or self._draw_noise
+        self._serial_noise = serial_noise or self._draw_serial_noise
         # the split-phase readback's side stream: created once, entered
         # explicitly by the scheduling-loop thread (the current stream is
         # thread-local in torch)
@@ -512,8 +536,9 @@ class Scheduler:
         self._pair_cache: Optional[tuple] = None  # (sig, table)
         # scheduler HA (ha.py): the leadership fencing token armed by
         # promote() — every batch bind carries it so a zombie ex-leader's
-        # late binds are rejected at the store (the warm standby is
-        # ROADMAP queue 1 item 3)
+        # late binds are rejected at the store — plus the warm-standby
+        # refresh loop state (keeps the device snapshot tracking informer
+        # churn while no scheduling loop runs)
         self._bind_fence = None
         # process-wide shared eviction budget (controller/evictionbudget.
         # EvictionBudget), injected by the process wiring when this
@@ -523,6 +548,9 @@ class Scheduler:
         # pre-budget behavior every bench and single-evictor rig keeps.
         self.eviction_budget = None
         self._ha_identity = "scheduler-0"
+        self._standby_stop = threading.Event()
+        self._standby_thread: Optional[threading.Thread] = None
+        self._standby_last_fresh: Optional[float] = None
         eventhandlers.add_all_event_handlers(self)
 
     def _draw_noise(self, p: int, m_c: int) -> torch.Tensor:
@@ -533,6 +561,15 @@ class Scheduler:
             (p, m_c), generator=self._rng, device=self.device,
             dtype=torch.float32,
         ) * 0.999
+
+    def _draw_serial_noise(self, p: int, n: int) -> torch.Tensor:
+        """The serial kernel's default tie noise: [p, n] uniform in [0, 1)
+        from the same Generator (the reference's per-pod
+        ``jax.random.uniform(key_i, (N,))``)."""
+        return torch.rand(
+            (p, n), generator=self._rng, device=self.device,
+            dtype=torch.float32,
+        )
 
     # -- wiring --------------------------------------------------------------
 
@@ -648,11 +685,13 @@ class Scheduler:
         """Leadership start: arm the bind fence, adopt whatever the
         previous leader left mid-flight, then start the scheduling loops
         (queue flushers, janitor, the batch loop). Called by start()
-        directly in the non-HA path (fence None); the warm-standby
-        promotion and the anti-entropy auditor are ROADMAP queue 1 items
-        3 and 6."""
+        directly in the non-HA path (fence None, no standby) and by the
+        election winner after start_standby(). The anti-entropy auditor is
+        ROADMAP queue 1 item 6."""
+        was_standby = self._standby_thread is not None
+        self._stop_standby_loop()
         self._bind_fence = fence
-        if fence is not None:
+        if was_standby or fence is not None:
             # the ride-through's bind-outcome discipline, triggered by a
             # leadership transition instead of a store reopen
             t0 = time.monotonic()
@@ -679,13 +718,144 @@ class Scheduler:
         )
         self._sched_thread.start()
 
+    # -- warm standby (scheduler HA, ha.py) -----------------------------------
+
     def start_standby(
         self, identity: str = "scheduler-0", refresh_period_s: float = 0.25
     ) -> None:
-        raise NotImplementedError(
-            "kubernetes_tpu_torch has no warm standby yet: it pre-warms the "
-            "serial lattice (ROADMAP queue 1 item 3)"
+        """Warm-standby mode: informers tail the (shared) watch cache into
+        the scheduler cache and queue, the device snapshot is built and
+        kept in lockstep with informer churn by a refresh loop, and the
+        wave / serial kernels run once — so promote() starts binding in
+        well under one autoscaler period instead of after a full rebuild.
+        NO scheduling loop runs: the standby acquires nothing and writes
+        nothing."""
+        self._ha_identity = identity
+        self._bringup()
+        if self.cfg.use_device:
+            try:
+                self.warm_standby_kernels()
+            except Exception:
+                # a failed pre-warm costs promotion latency, never
+                # correctness: the leader path launches lazily as before
+                logger.exception("standby kernel pre-warm failed")
+        metrics.set_gauge(GAUGE_ROLE, 0.0, {"identity": identity})
+        self._standby_last_fresh = time.monotonic()
+        metrics.set_gauge(
+            GAUGE_STANDBY_SNAPSHOT_AGE, 0.0, {"identity": identity}
         )
+        self._standby_stop.clear()
+        self._standby_thread = threading.Thread(
+            target=self._standby_loop,
+            args=(refresh_period_s,),
+            daemon=True,
+            name=f"standby-{identity}",
+        )
+        self._standby_thread.start()
+        logger.info(
+            "scheduler %s standing by: cache synced (%d nodes), snapshot "
+            "warm, kernels launched once", identity, self.cache.node_count,
+        )
+
+    def _standby_loop(self, period_s: float) -> None:
+        """Keep the standby's device snapshot tracking the informer
+        stream: scatter pending encoder deltas every tick so the dirty-row
+        backlog at promotion is bounded by one period, and publish the
+        snapshot's freshness age for the SIGUSR2 dump. (The reference
+        stops advancing the age while its device-down latch is set; that
+        latch is ROADMAP queue 1 item 6.)"""
+        while not self._standby_stop.wait(period_s):
+            try:
+                if self.cfg.use_device:
+                    if self.cache.encoder.has_pending_updates:
+                        self.cache.device_snapshot()  # flush under the lock
+                        metrics.inc(COUNTER_STANDBY_FLUSHES)
+                # host-only scheduling: the cache IS the state, there is
+                # no device snapshot to go stale
+                self._standby_last_fresh = time.monotonic()
+            except Exception:
+                logger.exception("standby snapshot refresh failed")
+            if self._standby_last_fresh is not None:
+                metrics.set_gauge(
+                    GAUGE_STANDBY_SNAPSHOT_AGE,
+                    max(0.0, time.monotonic() - self._standby_last_fresh),
+                    {"identity": self._ha_identity},
+                )
+
+    def _stop_standby_loop(self) -> None:
+        self._standby_stop.set()
+        t, self._standby_thread = self._standby_thread, None
+        if t is not None:
+            t.join(timeout=5.0)
+
+    def warm_standby_kernels(self) -> None:
+        """Launch, once, the kernels the leader path needs first: the
+        small-bucket wave kernel variant and the serial batch kernel (the
+        reference compiles them here; eager torch pays their first-launch
+        costs — the K1 library load, the caching allocator's first blocks).
+        Uses one synthetic unsatisfiable pod — a resource request no node
+        can hold — so both kernels run at real shapes while committing
+        nothing; if the readback ever shows a placement anyway, the device
+        snapshot is invalidated and rebuilt from the host masters rather
+        than trusted with a ghost pod."""
+        warm_pod = v1.Pod(
+            metadata=v1.ObjectMeta(
+                name="standby-warmup", namespace="kube-system"
+            ),
+            spec=v1.PodSpec(
+                containers=[v1.Container(requests={"cpu": "1000000"})]
+            ),
+        )
+        small = self._small_bucket
+        with self.cache.lock:
+            eb = self._tpl_cache.encode([warm_pod], pad_to=small)
+            ptab = self._pair_table(eb)
+            n_waves, batch_has_hard = self._batch_waves(eb)
+            n_waves = min(n_waves, 2)  # the small no-hard bucket's count
+            snap = self.cache.encoder.flush()
+            enc_cfg = self.cache.encoder.cfg
+        m_cand = min(self.cfg.wave_m_cand_small, self._m_cand)
+        kern = make_wave_kernel(
+            enc_cfg.v_cap,
+            m_cand,
+            n_waves,
+            self.cfg.hard_pod_affinity_weight,
+            self._use_pallas_fit,
+            self._score_refresh or batch_has_hard,
+            self._rtc_shape or DEFAULT_RTC_SHAPE,
+            False,
+        )
+        noise = self._noise(small, min(m_cand, enc_cfg.n_cap))
+        _new_snap, res, _copies = self._launch_wave_kernel(
+            kern, snap, eb.batch, ptab, np.asarray(self._weights), noise
+        )
+        placed = res.placed.cpu().numpy()
+        with self.cache.lock:
+            if placed.any():
+                # the "unsatisfiable" pod somehow placed (encoding clamp):
+                # never trust the warm launch's snapshot with a ghost pod.
+                # (The launch's donation lease already installed it as the
+                # live generation — rebuild over it from the host masters.)
+                logger.error(
+                    "standby warm-up pod was placed by the kernel; "
+                    "rebuilding the device snapshot from the host masters"
+                )
+                self.cache.encoder.invalidate_device()
+                self.cache.encoder.flush()
+        # the serial batch kernel (the use_wave=False device path)
+        kern2 = make_schedule_batch(
+            enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
+        )
+        with self.cache.lock:
+            eb2 = encode_pod_batch(
+                self.cache.encoder, [warm_pod], pad_to=1
+            )
+            snap2 = self.cache.encoder.flush()
+        self._run_serial_kernel(
+            kern2, snap2, eb2.batch,
+            self._serial_noise(1, int(snap2.valid.shape[0])),
+        )
+        metrics.inc(COUNTER_STANDBY_WARMUPS)
 
     def _adopt_pending(self) -> Dict[str, int]:
         """Leader-adoption pass: the pending-bind reconciler's
@@ -786,6 +956,7 @@ class Scheduler:
 
     def stop(self) -> None:
         self._stop.set()
+        self._stop_standby_loop()
         self.queue.close()
         self.cache.stop()
         self.informer_factory.stop()
@@ -1295,16 +1466,195 @@ class Scheduler:
                 self._schedule_one_host(pi, moves0)
             trace.log_if_long(0.1)
             return
-        if use_device:
-            # use_wave=False (the serial lattice) is refused at
-            # construction: ROADMAP queue 1 item 3
+        if use_device and self.cfg.use_wave:
             self._schedule_batch_wave(known, moves0, trace, t_start)
+        elif use_device:
+            self._resolve_pending()
+            self._schedule_batch_device(known, moves0, trace, t_start)
+            trace.log_if_long(0.1)
         else:
             self._resolve_pending()
             self._snapshot = self.cache.update_snapshot()
             for pi in known:
                 self._schedule_one_host(pi, moves0)
             trace.log_if_long(0.1)
+
+    # -- device path ---------------------------------------------------------
+
+    @staticmethod
+    def _pad(n: int) -> int:
+        p = 1
+        while p < n:
+            p *= 2
+        return p
+
+    def _schedule_batch_device(
+        self, pis: List[QueuedPodInfo], moves0: int, trace: Trace, t_start: float
+    ) -> None:
+        """The serial device path (use_wave=False): encode the batch per
+        pod, run the serial lattice, read it back, then assume and bind.
+        The reference wraps the launch in a device-loss ride-through
+        (bounded retries, then the host path and the device-down latch);
+        that is ROADMAP queue 1 item 6. Here a launch or readback error
+        propagates to the loop, which logs and requeues the batch — nothing
+        was assumed before the readback."""
+        with self.cache.lock, _stage_timer("encode"):
+            eb = encode_pod_batch(
+                self.cache.encoder,
+                [pi.pod for pi in pis],
+                pad_to=self._pad(len(pis)),
+            )
+            snap = self.cache.encoder.flush()
+            enc_cfg = self.cache.encoder.cfg
+            row_names = list(self.cache.encoder.row_names)
+            launch_gen = self.cache._ext_generation
+        trace.step("encoded+flushed")
+        kern = make_schedule_batch(
+            enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
+        )
+        noise = self._serial_noise(
+            int(eb.batch.valid.shape[0]), int(snap.valid.shape[0])
+        )
+        w_launch = np.asarray(self._weights)
+        with _stage_timer("kernel"):
+            res, chosen, score, bulk = self._run_serial_kernel(
+                kern, snap, eb.batch, noise, w_launch
+            )
+        trace.step("kernel")
+        algo_dur = time.monotonic() - t_start
+        if self.cfg.kernel_output_guards:
+            # mask with `!= -1`, not `>= 0`: -1 is the kernel's ONLY
+            # legitimate unplaced sentinel, so any other negative index
+            # is corruption that must trip GUARD_ROW_RANGE — a `>= 0`
+            # mask would silently route a sign-flipped row (and its
+            # poisoned score) into the unschedulable/preemption path
+            reason = validate_batch_outputs(
+                chosen, np.asarray(chosen) != -1, score, len(row_names)
+            )
+            if reason:
+                # serial path (no pipeline): quarantine this batch to the
+                # host path and rebuild the snapshot — nothing assumed yet.
+                # (The reference also latches the device off after
+                # repeated trips: ROADMAP queue 1 item 6.)
+                metrics.inc("kernel_guard_trips_total", {"reason": reason})
+                logger.error(
+                    "kernel output guard tripped (%s) on the serial device "
+                    "path: batch of %d pods degrades to the host path",
+                    reason, len(pis),
+                )
+                with self.cache.lock:
+                    self.cache.encoder.invalidate_device()
+                self._snapshot = self.cache.update_snapshot()
+                for pi in pis:
+                    self._schedule_one_host(pi, moves0)
+                return
+
+        fallback_pis: List[QueuedPodInfo] = []
+        failed: List = []  # (pi, batch_index or -1)
+        resolvable = None
+        serial_to_bind: List = []  # (pi, node_name) decode-first, bind after
+        for i, pi in enumerate(pis):
+            if eb.fallback[i]:
+                fallback_pis.append(pi)
+                continue
+            row = int(chosen[i])
+            if row < 0:
+                if resolvable is None:
+                    resolvable = res.resolvable.cpu().numpy()
+                failed.append((pi, i))
+                continue
+            node_name = row_names[row]
+            if node_name is None:
+                failed.append((pi, -1))
+                continue
+            serial_to_bind.append((pi, node_name))
+        # split-phase serial: the fast chosen-index payload was acted on
+        # with score=None; register the trailing bulk validation before
+        # any bind leaves the process, and take one last non-blocking
+        # look — on CPU the score has already landed, so the common case
+        # still validates before the first bind
+        entry = None
+        if bulk is not None and serial_to_bind:
+            entry = self._register_trailing(
+                bulk,
+                np.asarray(chosen) != -1,
+                [(pi, node, None, None) for pi, node in serial_to_bind],
+                launch_gen, None, path="serial",
+            )
+        if entry is not None and self._trailing_gate(entry):
+            for pi, _node in serial_to_bind:
+                tracer.event(pi.trace_id, "serial.trailing_unwound")
+                self.queue.requeue_backoff(pi)
+        else:
+            for pi, node_name in serial_to_bind:
+                metrics.observe(
+                    "scheduling_algorithm_duration_seconds", algo_dur
+                )
+                self._assume_and_bind(pi, node_name, t_start)
+            if entry is not None:
+                entry.binds_issued = True
+        if fallback_pis or failed:
+            self._snapshot = self.cache.update_snapshot()
+        for pi in fallback_pis:
+            self._schedule_one_host(pi, moves0)
+        if failed:
+            # one batched device what-if narrows every failed pod's candidates
+            whatif = None
+            try:
+                with self.cache.lock:
+                    snap2 = self.cache.encoder.flush()
+                whatif = preempt_whatif(
+                    snap2, eb.batch, eb.batch.priority
+                ).cpu().numpy()
+            except Exception:
+                logger.exception("preempt what-if kernel failed")
+            for pi, i in failed:
+                # i < 0: decode anomaly (node vanished mid-cycle) — pass
+                # None so the preemptor does its own full scan
+                candidates: Optional[List[str]] = None
+                if i >= 0 and resolvable is not None:
+                    mask = resolvable[i]
+                    # shapes can differ if a node joined between the batch
+                    # encode and the what-if re-flush (encoder row growth)
+                    if whatif is not None and whatif.shape[1] == mask.shape[0]:
+                        mask = mask & whatif[i]
+                    candidates = [
+                        row_names[r]
+                        for r in np.nonzero(mask)[0]
+                        if row_names[r]
+                    ]
+                self._handle_failure(
+                    pi,
+                    moves0,
+                    message=f"0/{self.cache.node_count} nodes are available",
+                    candidate_nodes=candidates,
+                )
+
+    def _run_serial_kernel(self, kern, snap, batch, noise, weights=None):
+        """Launch + readback of the serial batch kernel — one synchronous
+        call, split out as an injectable seam for fault injection (mirrors
+        _launch_wave_kernel/_fetch_wave_index). ``weights`` pins the exact
+        launch vector; None reads the live policy. Returns (res, chosen,
+        score, bulk).
+
+        Split-phase mode: only the small chosen-index vector is fetched
+        on the critical path (its device->host copy starts on the side
+        stream right behind the launch); the score tensor streams back
+        behind it (``bulk``, a HostCopy) and is validated by the trailing
+        machinery — the caller sees score=None and registers a
+        _TrailingReadback. Combined mode returns both as numpy and bulk
+        None."""
+        if weights is None:
+            weights = np.asarray(self._weights)
+        res = kern(snap, batch, weights, noise)
+        if self._split_phase:
+            with self.cache.encoder.pin_generation():
+                fast = HostCopy((res.chosen,), self._copy_stream)
+                bulk = HostCopy((res.score,), self._copy_stream)
+                metrics.inc(COUNTER_WAVE_BLOCKING_READBACKS)
+                chosen = fast.arrays()[0]
+            return res, chosen, None, bulk
+        return res, res.chosen.cpu().numpy(), res.score.cpu().numpy(), None
 
     # -- wave device path -----------------------------------------------------
 
@@ -2005,19 +2355,25 @@ class Scheduler:
         p.trace.log_if_long(0.1)
 
     def _finish_failed(self, p: "_InFlightBatch", failed: List) -> None:
-        """The reference's failure path with vector preemption off (the
-        batched victim-selection kernel is ROADMAP queue 1 item 4): the
-        optimistic what-if mask narrows each failed pod's candidates, and
-        the host Preemptor walks them."""
         eb, row_names, res, moves0 = p.eb, p.row_names, p.res, p.moves0
         resolvable_tpl = res.resolvable_tpl.cpu().numpy()
         pod_tpl = eb.pod_tpl_np
         pod_prio = eb.pod_prio_np
-        # batched masked what-if (one device call for ALL failed pods):
-        # per-template optimistic preemption mask, priority = max over the
-        # batch's pods of that template so the mask stays a superset for
-        # every pod
-        whatif_tpl = self._preempt_whatif_tpl(eb, failed, pod_tpl)
+        # vectorized victim selection (ops/preemptlattice): ONE batched
+        # pass over a (template, priority)-grouped gather of the batch
+        # ranks candidate nodes and minimal victim-band prefixes for
+        # every failed pod; the per-pod host work below shrinks to the
+        # exact oracle check on the chosen node. None (disabled / guard
+        # trip / kernel error) falls back to the optimistic what-if mask
+        # + the per-pod host walk.
+        vec = self._vector_preempt_batch(eb, failed, pod_tpl, pod_prio)
+        whatif_tpl = None
+        if vec is None:
+            # batched masked what-if (one device call for ALL failed
+            # pods): per-template optimistic preemption mask, priority =
+            # max over the batch's pods of that template so the mask
+            # stays a superset for every pod
+            whatif_tpl = self._preempt_whatif_tpl(eb, failed, pod_tpl)
         # (template, priority) groups whose scan on the CURRENT snapshot
         # found no viable node: siblings share the spec, so their scans
         # are provably identical — skip them. A successful preemption
@@ -2025,16 +2381,90 @@ class Scheduler:
         # groups: clear the memo.
         hopeless: set = set()
         scans = 0
-        # in-batch fan-out: within one batch `self._snapshot` is stale —
+        verified = 0
+        # in-batch fan-out: a wave's failed pods are overwhelmingly
+        # sibling specs, and within one batch `self._snapshot` is stale —
         # victims already claimed by an earlier sibling still look
-        # evictable. `targeted` tracks nodes whose victims this batch
-        # already claimed, so siblings nominate distinct nodes.
+        # evictable, so without this every sibling would nominate the
+        # SAME node and the batch would free exactly one node per wave
+        # (measured: 89/1000 burst pods bound in 25 min). `targeted`
+        # tracks nodes whose victims this batch already claimed; each
+        # sibling consumes the next untargeted candidate from its group's
+        # kernel ranking, so a 1k-pod burst nominates ~1k DISTINCT nodes
+        # in one batched pass.
         targeted: set = set()
+        group_cands: Dict[tuple, List[str]] = {}
+        # the wave's resolvable masks live in the LAUNCH row space; the
+        # preempt kernel ran on the post-flush one. Intersecting the two
+        # is only meaningful when no churn remapped rows in between —
+        # otherwise the helpful mask must not narrow the (oracle-
+        # validated) fallback candidate list against the wrong nodes.
+        vec_same_rows = (
+            vec is not None
+            and vec["row_names"][: len(row_names)] == list(row_names)
+        )
         for pi, i in failed:
             t = int(pod_tpl[i])
             group = (t, int(pod_prio[i]))
             rows_mask = resolvable_tpl[t]
-            if (
+            vector_choice = None
+            saturated = False
+            if vec is not None:
+                g = vec["group_of"].get(group)
+                helpful = vec["helpful"]
+                # vec_names is the row space the preempt kernel actually
+                # ran on (captured under the lock WITH its flush) — the
+                # wave-launch row_names may be stale if informer churn
+                # remapped rows while the wave was in flight
+                vec_names = vec["row_names"]
+                if (
+                    g is not None
+                    and vec_same_rows
+                    and helpful.shape[1] == rows_mask.shape[0]
+                ):
+                    rows_mask = rows_mask & helpful[g]
+                if g is not None and int(vec["node"][g]) >= 0:
+                    if group not in group_cands:
+                        # the group's full candidate ranking: the kernel's
+                        # top-K rows first, then every other helpful row
+                        # in row order — the fan-out tail for groups with
+                        # more siblings than K
+                        ranked = [
+                            int(r)
+                            for r in vec["cand"][g]
+                            if 0 <= int(r) < len(vec_names)
+                            and vec_names[int(r)]
+                        ]
+                        seen = set(ranked)
+                        tail = [
+                            int(r)
+                            for r in np.nonzero(helpful[g])[0]
+                            if int(r) < len(vec_names)
+                            and vec_names[int(r)]
+                            and int(r) not in seen
+                        ]
+                        group_cands[group] = [
+                            vec_names[r] for r in ranked + tail
+                        ]
+                    avail = [
+                        n for n in group_cands[group] if n not in targeted
+                    ]
+                    if avail:
+                        # the oracle's exact selection runs on just these
+                        # (≤K) untargeted rows instead of every
+                        # resolvable node
+                        vector_choice = avail[: len(vec["cand"][g])]
+                    else:
+                        # every node this group's eviction could free is
+                        # already claimed by an earlier sibling: skip this
+                        # round — the pod retries next wave against a
+                        # snapshot that reflects the evictions
+                        saturated = True
+                        metrics.inc(
+                            "scheduler_preemption_fallback_total",
+                            {"reason": "batch_saturated"},
+                        )
+            elif (
                 whatif_tpl is not None
                 and whatif_tpl.shape[1] == rows_mask.shape[0]
             ):
@@ -2045,10 +2475,23 @@ class Scheduler:
                 for r in rows
                 if row_names[r] and row_names[r] not in targeted
             ]
-            attempt_would_run = bool(candidates)
-            skip = attempt_would_run and (
-                group in hopeless
-                or scans >= self._MAX_PREEMPT_SCANS_PER_BATCH
+            # an attempt with a vector choice costs an exact check on ≤K
+            # nodes; a full host scan runs only on fallback (no vector
+            # answer) or for the sampled differential oracle below. The
+            # hopeless memo covers both: siblings of a rejected group
+            # would re-fail identically on the unchanged snapshot.
+            attempt_would_run = bool(candidates) or vector_choice is not None
+            skip = saturated or (
+                attempt_would_run
+                and (
+                    group in hopeless
+                    or scans >= self._MAX_PREEMPT_SCANS_PER_BATCH
+                )
+            )
+            verify_full = (
+                vector_choice is not None
+                and not skip
+                and verified < self.cfg.preempt_verify_sample
             )
             preempted = self._handle_failure(
                 pi,
@@ -2056,11 +2499,16 @@ class Scheduler:
                 message=f"0/{self.cache.node_count} nodes are available",
                 candidate_nodes=candidates,
                 skip_preemption=skip,
+                vector_choice=vector_choice,
+                verify_full=verify_full,
             )
+            if verify_full:
+                verified += 1
             if preempted:
                 targeted.add(preempted)
             if attempt_would_run and not skip:
-                scans += 1
+                if vector_choice is None or verify_full:
+                    scans += 1  # bound the expensive full walks only
                 if preempted:
                     hopeless.clear()
                 else:
@@ -2207,12 +2655,146 @@ class Scheduler:
                 tracer.event(pi.trace_id, "wave.quarantined")
                 self.queue.readd(pi)
 
+    # pad buckets for the (template, priority)-grouped preemption batch:
+    # failed-group counts are small (distinct specs x priority tiers, not
+    # pods); two buckets keep the pass's shapes few
+    _PREEMPT_PAD_BUCKETS = (16, 128)
+
+    def _run_preempt_kernel(self, snap, batch, prios: np.ndarray) -> dict:
+        """Launch + readback of the vectorized victim-selection kernel —
+        one synchronous call, split out as an injectable seam for the
+        differential tests' seeded-disagreement corruption (mirrors
+        _run_serial_kernel)."""
+        res = preempt_select(
+            snap, batch,
+            torch.as_tensor(np.asarray(prios, np.int32), device=self.device),
+        )
+        return {
+            "node": res.node.cpu().numpy(),
+            "cand": res.cand.cpu().numpy(),
+            "threshold": res.threshold_prio.cpu().numpy(),
+            "victims": res.victims.cpu().numpy(),
+            "violations": res.violations.cpu().numpy(),
+            "helpful": res.helpful.cpu().numpy(),
+        }
+
+    def _vector_preempt_batch(
+        self, eb, failed: List, pod_tpl: np.ndarray, pod_prio: np.ndarray
+    ) -> Optional[dict]:
+        """ONE batched victim-selection pass for a resolved wave's failed
+        pods (ops/preemptlattice.preempt_select): failed pods group by
+        (template, priority) — siblings share the whole answer — the
+        template tensors gather into a [G]-row PodBatch, and the kernel
+        ranks (node, minimal victim-band prefix) per group against a
+        freshly-flushed snapshot whose PDB budget column was just
+        refreshed from the disruption controller's published budgets.
+        Readback passes through validate_preempt_outputs (the kernel-
+        output guard discipline) — a trip, a kernel error, or the config
+        gate returns None and the caller falls back to the host walk;
+        nothing is ever evicted from this result without the per-node
+        host-oracle check in _attempt_preemption. (The reference also
+        skips the pass while its device-down latch is set: ROADMAP queue
+        1 item 6.)"""
+        if (
+            not self.cfg.vector_preemption
+            or self.cfg.disable_preemption
+            or not self.cfg.use_device
+        ):
+            return None
+        try:
+            groups: Dict[tuple, int] = {}
+            t_idx: List[int] = []
+            g_prio: List[int] = []
+            for pi, i in failed:
+                if i < 0:
+                    continue  # decode anomaly: host walk handles it
+                key = (int(pod_tpl[i]), int(pod_prio[i]))
+                if key not in groups:
+                    groups[key] = len(t_idx)
+                    t_idx.append(key[0])
+                    g_prio.append(key[1])
+            if not groups:
+                return None
+            pad = self._PREEMPT_PAD_BUCKETS[-1]
+            for b in self._PREEMPT_PAD_BUCKETS:
+                if len(t_idx) <= b:
+                    pad = b
+                    break
+            if len(t_idx) > pad:
+                # more distinct groups than the widest bucket: the tail
+                # falls back to the host walk (counted, never silent)
+                metrics.inc(
+                    "scheduler_preemption_fallback_total",
+                    {"reason": "group_overflow"},
+                )
+                t_idx, g_prio = t_idx[:pad], g_prio[:pad]
+                groups = {k: g for k, g in groups.items() if g < pad}
+            idx = np.zeros(pad, np.int64)
+            idx[: len(t_idx)] = t_idx
+            prios = np.zeros(pad, np.int32)
+            prios[: len(g_prio)] = g_prio
+            # the PDB list can be a store round-trip (REST-backed server):
+            # never hold the cache lock across it
+            pdbs = list(self._list_pdbs()) if self._list_pdbs else []
+            with self.cache.lock:
+                # _finish_batch drains the pipeline before failure
+                # handling, so no newer batch's un-replayed device commits
+                # can be erased by this flush
+                assert not self._pending
+                self.cache.encoder.update_pdb_blocked(pdbs)
+                snap = self.cache.encoder.flush()
+                # decode rows against the SAME row space the kernel ran
+                # on: informer churn during the in-flight wave can remap
+                # encoder rows, so the wave-launch row_names must never
+                # decode this pass's output
+                vec_row_names = list(self.cache.encoder.row_names)
+                n_rows = len(vec_row_names)
+            tpl = eb.batch.tpl
+            rows = torch.as_tensor(idx, device=tpl.valid.device)
+            gathered = PodBatch(*(f.index_select(0, rows) for f in tpl))
+            gathered = gathered._replace(
+                valid=gathered.valid
+                & (torch.arange(pad, device=rows.device) < len(t_idx))
+            )
+            t0 = time.monotonic()
+            vec = self._run_preempt_kernel(snap, gathered, prios)
+            dt = time.monotonic() - t0
+            metrics.inc("scheduler_preemption_batches_total")
+            metrics.observe("scheduler_preemption_select_duration_seconds", dt)
+            metrics.set_gauge(
+                "scheduler_preemption_last_select_ms", round(dt * 1e3, 3)
+            )
+            reason = validate_preempt_outputs(
+                vec["node"], vec["victims"], n_rows, cand=vec["cand"]
+            )
+            if reason:
+                metrics.inc(
+                    "scheduler_preemption_guard_trips_total",
+                    {"reason": reason},
+                )
+                logger.error(
+                    "preemption kernel output guard tripped (%s): victim "
+                    "selection for this batch degrades to the host walk",
+                    reason,
+                )
+                return None
+            vec["group_of"] = groups
+            vec["row_names"] = vec_row_names
+            return vec
+        except Exception:
+            logger.exception(
+                "vectorized victim selection failed; host walk"
+            )
+            metrics.inc(
+                "scheduler_preemption_fallback_total",
+                {"reason": "kernel_error"},
+            )
+            return None
+
     def _preempt_whatif_tpl(self, eb, failed: List, pod_tpl: np.ndarray):
         """[TPL, N] optimistic preemption mask for the batch's templates
         (ops/lattice.preempt_whatif), or None when unavailable."""
         try:
-            from ..ops.lattice import preempt_whatif
-
             prios = np.zeros(eb.tpl_np.valid.shape[0], np.int32)
             pod_prio = eb.pod_prio_np
             for pi, i in failed:
@@ -2638,6 +3220,8 @@ class Scheduler:
         candidate_nodes: Optional[List[str]] = None,
         error: bool = False,
         skip_preemption: bool = False,
+        vector_choice: Optional[List[str]] = None,
+        verify_full: bool = False,
     ) -> str:
         """Returns the nominated node name when a preemption was
         performed (cluster mutated), else '' — callers that only care
@@ -2671,7 +3255,9 @@ class Scheduler:
         if not error and not self.cfg.disable_preemption and not skip_preemption:
             try:
                 preempted = self._attempt_preemption(
-                    pod, prof, fit_error, candidate_nodes
+                    pod, prof, fit_error, candidate_nodes,
+                    vector_choice=vector_choice,
+                    verify_full=verify_full,
                 )
             except (DegradedWrites, NotPrimary):
                 # degraded store: victim deletes / nominations can't land;
@@ -2730,30 +3316,113 @@ class Scheduler:
                 "scheduler_degraded_write_skips_total", {"write": "condition"}
             )
 
+    def _preempt_choice_cooptimal(
+        self, victims: List, ovictims: List
+    ) -> bool:
+        """Documented tie-break check for the sampled differential
+        oracle: the vector engine's choice counts as AGREEING with the
+        full host walk when the two exact victim sets tie on
+        pickOneNodeForPreemption criteria 1-4 (PDB violations, max
+        victim priority, priority sum, victim count) — the engine breaks
+        such ties by row order where the oracle uses start time / name
+        order, and the band-prefix ranking may legitimately land on a
+        co-optimal node. Anything beyond that is a real divergence."""
+        from .preemption import filter_pods_with_pdb_violation
+
+        pdbs = list(self._list_pdbs()) if self._list_pdbs else []
+
+        def key(vs):
+            violating, _ = filter_pods_with_pdb_violation(list(vs), pdbs)
+            return (
+                len(violating),
+                max((v.priority for v in vs), default=-(2 ** 31)),
+                sum(v.priority for v in vs),
+                len(vs),
+            )
+
+        return key(victims) == key(ovictims)
+
     def _attempt_preemption(
         self,
         pod,
         prof,
         fit_error,
         candidate_nodes: Optional[List[str]],
+        vector_choice: Optional[List[str]] = None,
+        verify_full: bool = False,
     ) -> str:
         """sched.preempt (scheduler.go:392): find victims, delete them, set
-        NominatedNodeName. Returns the nominated node ('' if none). The
-        host Preemptor walks the candidates; the reference's vector-engine
-        choice and its sampled differential oracle are ROADMAP queue 1
-        item 4."""
+        NominatedNodeName. Returns the nominated node ('' if none).
+
+        vector_choice = the batched kernel pass's ranked candidate node
+        names (ops/preemptlattice top-K): the host oracle then runs its
+        EXACT selection (filters + reprieve + PDB countdown + the full
+        5-criterion node pick) on those K nodes instead of walking every
+        candidate — a fully-rejected candidate set is a counted
+        disagreement that falls back to the full walk, so a kernel
+        ranking error costs time, never a wrong eviction. verify_full
+        additionally runs the full walk and compares (the sampled
+        differential oracle); on divergence beyond the documented
+        tie-breaks the oracle's answer wins."""
         if self._snapshot is None:
             self._snapshot = self.cache.update_snapshot()
         preemptor = self._preemptors[prof.name]
         tid = tracer.trace_for_pod(pod.metadata.key)
+        node, victims = "", []
         with tracer.span(tid, "preempt.select"):
-            # candidate_nodes semantics: None = unknown (scan per
-            # fit_error / all nodes); a list — possibly empty — is the
-            # device pass's narrowed candidate set and is authoritative
-            # (empty = hopeless)
-            node, victims = preemptor.preempt(
-                pod, self._snapshot, fit_error, candidate_nodes
-            )
+            if vector_choice is not None:
+                node, victims = preemptor.preempt(
+                    pod, self._snapshot, fit_error, vector_choice
+                )
+                if node:
+                    metrics.inc("scheduler_preemption_vector_hits_total")
+                else:
+                    # the exact oracle rejected the kernel's ranked
+                    # winner (reprieve/PDB refinement, or a seeded
+                    # disagreement in tests): host walk, zero evictions
+                    # from the rejected proposal
+                    metrics.inc(
+                        "scheduler_preemption_fallback_total",
+                        {"reason": "oracle_reject"},
+                    )
+            if verify_full or not node:
+                # candidate_nodes semantics: None = unknown (scan per
+                # fit_error / all nodes); a list — possibly empty — is the
+                # device pass's narrowed candidate set and is
+                # authoritative (empty = hopeless). The VERIFY walk (node
+                # already accepted) must see the same universe the engine
+                # drew from — candidate_nodes was intersected with the
+                # wave-launch resolvable mask, so a node the wave's own
+                # binds just filled can be in vector_choice but not
+                # candidates; comparing across different universes would
+                # count a legitimate pick as a divergence and discard it
+                verify_nodes = candidate_nodes
+                if node and candidate_nodes is not None:
+                    verify_nodes = sorted(
+                        set(candidate_nodes) | set(vector_choice or [])
+                    )
+                onode, ovictims = preemptor.preempt(
+                    pod, self._snapshot, fit_error, verify_nodes
+                )
+                if not node:
+                    node, victims = onode, ovictims
+                elif onode != node or (
+                    {v.metadata.key for v in ovictims}
+                    != {v.metadata.key for v in victims}
+                ):
+                    if not onode or not self._preempt_choice_cooptimal(
+                        victims, ovictims
+                    ):
+                        metrics.inc(
+                            "scheduler_preemption_oracle_divergence_total"
+                        )
+                        logger.warning(
+                            "vector preemption diverged from the host "
+                            "oracle for %s (vector %s, oracle %s): using "
+                            "the oracle's answer",
+                            pod.metadata.key, node, onode or "<none>",
+                        )
+                        node, victims = onode, ovictims
         if not node:
             return ""
         # zombie-fence pre-check (the _check_fence_live seam):

@@ -100,6 +100,7 @@ DEFINITIONS = {
         "SnapshotEncoder.repair_row",
         "SnapshotEncoder.utilization_stats",
         "UtilizationStats",
+        "SnapshotEncoder.update_pdb_blocked",
     ],
     "ops/lattice.py": ["_BUILTIN_PROFILES", "register_weight_profile"],
     "tuner/scoring.py": ["fragmentation_score"],

@@ -1,7 +1,9 @@
 """The port's hand-written CUDA kernels against their plain PyTorch
-versions, on the card. Every test here is marked ``cuda`` and skips
-without a CUDA device (the kernels have no CPU or interpret mode; the
-plain versions are held against the JAX reference in the CPU tests).
+versions, and the torch device programs (the serial lattice, the victim
+selection) on the card against their own CPU run. Every test here is
+marked ``cuda`` and skips without a CUDA device (the kernels have no CPU
+or interpret mode; the plain versions and the CPU runs are held against
+the JAX reference in the CPU tests).
 
 This file imports neither jax nor the JAX package, so it also runs where
 jax is not installed::
@@ -10,7 +12,10 @@ jax is not installed::
 
 Tolerance: none — the fit mask is boolean and must be bit-equal, and
 K2's score is built to match its plain version bit for bit (explicit
-round-to-nearest steps, -fmad=false).
+round-to-nearest steps, -fmad=false). The serial lattice and the victim
+selection must give the same outputs on the card as on the CPU, every
+field equal: their float work is single IEEE operations and sums of
+integer-valued terms.
 """
 
 import numpy as np
@@ -164,3 +169,143 @@ def test_fit_mask_least_alloc_kernel_rejects_what_it_does_not_take():
         fit_mask_least_alloc(req, free, alloc[:, :5].contiguous())
     with pytest.raises(ValueError):
         fit_mask_least_alloc(*_la_case(1, 2, 64, 17))
+
+
+def _to(nt, device):
+    return type(nt)(*(t.to(device) for t in nt))
+
+
+def _seeded_cluster(seed, n_nodes=64, n_pending=48, per_node=2):
+    """(encoder on the CPU, pending pods): zoned nodes with taints and
+    priority-banded prefill pods, some carrying required anti-affinity;
+    pending pods with required zone affinity and anti-affinity, topology
+    spread, tolerations and priorities, drawn from a numpy seed."""
+    from kubernetes_tpu_torch.api import objects as o
+    from kubernetes_tpu_torch.api.selectors import LabelSelector
+    from kubernetes_tpu_torch.ops.encoding import SnapshotEncoder
+
+    rng = np.random.default_rng(seed)
+    enc = SnapshotEncoder(device="cpu")
+
+    def term(app):
+        return o.PodAffinityTerm(
+            label_selector=LabelSelector.make(match_labels={"app": app}),
+            topology_key="zone",
+        )
+
+    for i in range(n_nodes):
+        taints = [o.Taint("dedicated", "infra", "NoSchedule")] if i % 9 == 0 else []
+        enc.add_node(
+            o.Node(
+                metadata=o.ObjectMeta(
+                    name=f"n{i}", namespace="", labels={"zone": f"z{i % 4}"}
+                ),
+                spec=o.NodeSpec(taints=taints),
+                status=o.NodeStatus(
+                    allocatable={"cpu": "4", "memory": "16Gi", "pods": 32}
+                ),
+            )
+        )
+    apps = ("web", "db", "cache")
+    for j in range(per_node * n_nodes):
+        app = apps[int(rng.integers(0, 3))]
+        aff = (
+            o.Affinity(pod_anti_affinity=o.PodAntiAffinity(required=(term("db"),)))
+            if app == "cache" and rng.random() < 0.3
+            else None
+        )
+        enc.add_pod(
+            f"n{int(rng.integers(0, n_nodes))}",
+            o.Pod(
+                metadata=o.ObjectMeta(name=f"pre-{j}", labels={"app": app}),
+                spec=o.PodSpec(
+                    containers=[o.Container(requests={"cpu": "500m"})],
+                    priority=int(rng.choice([0, 10, 100])),
+                    affinity=aff,
+                ),
+            ),
+        )
+    pending = []
+    for k in range(n_pending):
+        app = apps[int(rng.integers(0, 3))]
+        kw = {}
+        roll = rng.random()
+        if roll < 0.25:
+            kw["affinity"] = o.Affinity(pod_affinity=o.PodAffinity(required=(term("web"),)))
+        elif roll < 0.5:
+            kw["affinity"] = o.Affinity(
+                pod_anti_affinity=o.PodAntiAffinity(required=(term(app),))
+            )
+        elif roll < 0.7:
+            kw["topology_spread_constraints"] = [
+                o.TopologySpreadConstraint(
+                    max_skew=1, topology_key="zone",
+                    when_unsatisfiable="DoNotSchedule",
+                    label_selector=LabelSelector.make(match_labels={"app": app}),
+                )
+            ]
+        if rng.random() < 0.3:
+            kw["tolerations"] = [o.Toleration(key="dedicated", operator="Exists")]
+        pending.append(
+            o.Pod(
+                metadata=o.ObjectMeta(name=f"p{k}", labels={"app": app}),
+                spec=o.PodSpec(
+                    containers=[o.Container(
+                        requests={"cpu": str(int(rng.choice([1, 2, 3])))}
+                    )],
+                    priority=int(rng.choice([20, 200])),
+                    **kw,
+                ),
+            )
+        )
+    return enc, pending
+
+
+@pytest.mark.cuda
+def test_serial_lattice_on_the_card_matches_its_cpu_run():
+    """The serial kernel on the card and on the CPU, from one seeded
+    cluster's snapshot and one tie noise: every BatchResult field equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kubernetes_tpu_torch.ops.batch import encode_pod_batch
+    from kubernetes_tpu_torch.ops.lattice import (
+        BatchResult,
+        make_schedule_batch,
+        weights_for_policy,
+    )
+
+    enc, pods = _seeded_cluster(0)
+    eb = encode_pod_batch(enc, pods, pad_to=64)
+    snap = enc.flush()
+    noise = torch.rand((64, snap.valid.shape[0]), generator=torch.Generator().manual_seed(0))
+    weights = torch.tensor(weights_for_policy("default"))
+    kern = make_schedule_batch(enc.cfg.v_cap)
+    want = kern(snap, eb.batch, weights, noise)
+    got = kern(_to(snap, "cuda"), _to(eb.batch, "cuda"), weights.cuda(), noise.cuda())
+    for f in BatchResult._fields:
+        g = getattr(got, f)
+        assert g.is_cuda and torch.equal(g.cpu(), getattr(want, f)), f
+    assert int((want.chosen >= 0).sum()) >= 16 and int((want.chosen < 0).sum()) >= 1
+
+
+@pytest.mark.cuda
+def test_preempt_select_on_the_card_matches_its_cpu_run():
+    """The victim selection on the card and on the CPU for one seeded
+    banded cluster: all six outputs equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kubernetes_tpu_torch.ops.batch import encode_pod_batch
+    from kubernetes_tpu_torch.ops.preemptlattice import (
+        PreemptBatchResult,
+        preempt_select,
+    )
+
+    enc, pods = _seeded_cluster(1, n_nodes=32, n_pending=16, per_node=7)
+    eb = encode_pod_batch(enc, pods, pad_to=16)
+    snap = enc.flush()
+    want = preempt_select(snap, eb.batch, eb.batch.priority)
+    got = preempt_select(_to(snap, "cuda"), _to(eb.batch, "cuda"), eb.batch.priority.cuda())
+    for f in PreemptBatchResult._fields:
+        g = getattr(got, f)
+        assert g.is_cuda and torch.equal(g.cpu(), getattr(want, f)), f
+    assert len(set(want.node.tolist()) - {-1}) >= 2

@@ -665,13 +665,15 @@ def test_preemption_end_to_end(sched_env):
 
 def test_device_preemption_candidates_come_from_the_whatif_mask(caplog):
     """A pod that fails on the device path preempts through _finish_batch:
-    the port's what-if mask narrows the candidates to the nodes where
-    evicting lower-priority pods makes room (not the tainted node, not the
-    node whose only pod outranks the preemptor), and the victim is one of
-    theirs."""
+    with vector preemption off, the port's what-if mask narrows the
+    candidates to the nodes where evicting lower-priority pods makes room
+    (not the tainted node, not the node whose only pod outranks the
+    preemptor), and the victim is one of theirs."""
     server = APIServer()
     sched = Scheduler(
-        server, _cfg(use_device=True, small_batch_host_max=0), device="cpu"
+        server,
+        _cfg(use_device=True, small_batch_host_max=0, vector_preemption=False),
+        device="cpu",
     )
     masks = []
     real = sched._preempt_whatif_tpl
@@ -783,8 +785,6 @@ def test_harness_fails_a_run_with_guard_trips(entry, monkeypatch):
 @pytest.mark.parametrize(
     "override,item",
     [
-        (dict(use_wave=False), 3),
-        (dict(vector_preemption=True), 4),
         (dict(host_callback_binds=True), 5),
         (dict(antientropy_period_s=5.0), 6),
         (dict(tune_policy=True), 7),
@@ -859,3 +859,360 @@ def test_run_benchmark_trace_dir_writes_a_profiler_trace(tmp_path):
     assert res.unscheduled == 0 and res.scheduled == 16
     trace = json.loads((tmp_path / "harness_trace.json").read_text())
     assert trace["traceEvents"], "the profiler recorded no events"
+
+
+# -- (d) the serial lattice, vector preemption and the warm standby ----------
+
+
+def test_reference_default_configuration_constructs():
+    """The reference's defaults (vector preemption on) and use_wave=False
+    construct; only the snapshot auditor stays off."""
+    for cfg in (
+        KubeSchedulerConfiguration(antientropy_period_s=0),
+        KubeSchedulerConfiguration(antientropy_period_s=0, use_wave=False),
+    ):
+        assert cfg.vector_preemption
+        sched = Scheduler(APIServer(), cfg, device="cpu")
+        sched.stop()
+
+
+class _SerialRecorder:
+    """Wraps one scheduler's serial launch seam: the kernel results and
+    (reference side) the launch keys with the batch's shape."""
+
+    def __init__(self, sched, ref: bool, keys=None):
+        self.results = []
+        real = sched._run_serial_kernel
+
+        def rec(kern, snap, batch, key_or_noise, weights=None):
+            out = real(kern, snap, batch, key_or_noise, weights)
+            if ref:
+                keys.append(
+                    (key_or_noise, batch.valid.shape[0], snap.valid.shape[0])
+                )
+                self.results.append(jax.device_get(out[0]))
+            else:
+                self.results.append(out[0])
+            return out
+
+        sched._run_serial_kernel = rec
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_serial_scheduler_matches_reference_batch_by_batch(name):
+    """use_wave=False on both sides, driven batch by batch as in (a), the
+    port given the reference's per-pod tie noise: every serial kernel
+    result (chosen, feasible_count, resolvable exact; score within the
+    stated tolerance), the bound sets and the bindings are equal."""
+    from test_torch_serial_lattice import assert_serial_parity, reference_noise
+
+    metrics.reset()
+    (ref_server, ref_pods), (server, pods), n_init = _parity_servers(name)
+    common = dict(
+        use_wave=False, device_batch_size=16, antientropy_period_s=0,
+        use_mesh=False, device_batch_window=0.0,
+    )
+    keys = collections.deque()
+    ref = ref_sched_mod.Scheduler(ref_server, RefConfig(**common))
+
+    def serial_noise(p, n):
+        key, rp, rn = keys.popleft()
+        assert (rp, rn) == (p, n)
+        return torch.tensor(reference_noise(key, p, n))
+
+    port = Scheduler(
+        server, KubeSchedulerConfiguration(**common), device="cpu",
+        serial_noise=serial_noise,
+    )
+    ref_rec = _SerialRecorder(ref, True, keys)
+    port_rec = _SerialRecorder(port, False)
+    try:
+        for s in (ref, port):
+            s._bringup()
+        for s, srv, ps in ((ref, ref_server, ref_pods), (port, server, pods)):
+            for p in ps:
+                srv.create("pods", p)
+            _wait(
+                lambda s=s, ps=ps: len(s.queue) == len(ps)
+                and s.cache.pod_count() == n_init,
+                30, "the informers to queue every pod",
+            )
+        batches = 0
+        while True:
+            ref_pis = ref.queue.pop_batch(16, timeout=0.0)
+            port_pis = port.queue.pop_batch(16, timeout=0.0)
+            assert [pi.pod.metadata.name for pi in port_pis] == [
+                pi.pod.metadata.name for pi in ref_pis
+            ], f"batch {batches}: the queues popped different pods"
+            if not ref_pis:
+                break
+            batches += 1
+            ref.schedule_pod_batch(ref_pis)
+            port.schedule_pod_batch(port_pis)
+            assert len(port_rec.results) == len(ref_rec.results) == batches
+            diff = assert_serial_parity(ref_rec.results[-1], port_rec.results[-1])
+            assert diff.size == 0, f"batch {batches}: chosen differs at {diff}"
+            for s in (ref, port):
+                _wait(
+                    lambda s=s: not s.cache.assumed_keys(), 30,
+                    "the informers to confirm every bind",
+                )
+            assert _bound(server) == _bound(ref_server)
+        assert batches == 3
+        assert len(_bound(server)) == len(pods) + n_init
+        assert not keys and not port._trailing
+        assert _counter_sum("kernel_guard_trips_total") == 0
+    finally:
+        ref.stop()
+        port.stop()
+
+
+def _preempt_cluster(o, server, n_nodes, n_hi):
+    """A FULL cluster (4 x 1-cpu priority-0 pods pre-bound on each 4-cpu
+    node) and a pending burst of 2-cpu priority-100 pods, in package o's
+    objects."""
+    for i in range(n_nodes):
+        server.create(
+            "nodes",
+            o.Node(
+                metadata=o.ObjectMeta(name=f"n{i}", namespace=""),
+                status=o.NodeStatus(
+                    allocatable={"cpu": "4", "memory": "16Gi", "pods": 32}
+                ),
+            ),
+        )
+        for k in range(4):
+            server.create(
+                "pods",
+                o.Pod(
+                    metadata=o.ObjectMeta(
+                        name=f"low-{i}-{k}", labels={"app": "web"}
+                    ),
+                    spec=o.PodSpec(
+                        containers=[o.Container(requests={"cpu": "1"})],
+                        priority=0,
+                        node_name=f"n{i}",
+                    ),
+                ),
+            )
+    for i in range(n_hi):
+        server.create(
+            "pods",
+            o.Pod(
+                metadata=o.ObjectMeta(name=f"hi-{i}"),
+                spec=o.PodSpec(
+                    containers=[o.Container(requests={"cpu": "2"})],
+                    priority=100,
+                ),
+            ),
+        )
+
+
+def _preemption_outcome(server):
+    pods = server.list("pods")[0]
+    return (
+        sorted(p.metadata.name for p in pods if p.metadata.name.startswith("low-")),
+        {
+            p.metadata.name: p.status.nominated_node_name
+            for p in pods
+            if p.metadata.name.startswith("hi-")
+        },
+    )
+
+
+@pytest.mark.parametrize("n_nodes,n_hi", [(6, 6), (10, 10)])
+def test_vector_preemption_matches_reference(n_nodes, n_hi):
+    """The happy path (6 preemptors over 6 full nodes) and the sibling
+    burst (10 preemptors, more than the kernel's top-K) of
+    tests/test_preemptlattice.py, driven on both sides through one wave
+    batch: the batched victim selection runs, and the surviving pods (so
+    the victims evicted) and the nominated nodes are the reference's.
+    Then both loops run until every preemptor is bound, on distinct
+    nodes."""
+    from kubernetes_tpu.api import objects as ref_v1
+    from kubernetes_tpu.utils.metrics import metrics as ref_metrics
+
+    metrics.reset()
+    ref_server, server = RefAPIServer(), APIServer()
+    _preempt_cluster(ref_v1, ref_server, n_nodes, n_hi)
+    _preempt_cluster(v1, server, n_nodes, n_hi)
+    common = dict(antientropy_period_s=0, use_mesh=False, device_batch_window=0.0)
+    ref = ref_sched_mod.Scheduler(ref_server, RefConfig(**common))
+    port = Scheduler(server, KubeSchedulerConfiguration(**common), device="cpu")
+    ref_counter = lambda n: ref_metrics.counter(n)  # noqa: E731
+    base = {
+        n: ref_counter(n)
+        for n in (
+            "scheduler_preemption_batches_total",
+            "scheduler_preemption_vector_hits_total",
+            "scheduler_preemption_oracle_divergence_total",
+        )
+    }
+    try:
+        for s in (ref, port):
+            s._bringup()
+            _wait(
+                lambda s=s: len(s.queue) == n_hi
+                and s.cache.pod_count() == 4 * n_nodes,
+                30, "the informers to sync",
+            )
+        ref_pis = ref.queue.pop_batch(64, timeout=0.0)
+        port_pis = port.queue.pop_batch(64, timeout=0.0)
+        assert [pi.pod.metadata.name for pi in port_pis] == [
+            pi.pod.metadata.name for pi in ref_pis
+        ]
+        assert len(ref_pis) == n_hi
+        for s, pis in ((ref, ref_pis), (port, port_pis)):
+            s.schedule_pod_batch(pis)
+            s._resolve_pending()
+        want = _preemption_outcome(ref_server)
+        got = _preemption_outcome(server)
+        assert got == want
+        assert len(want[0]) < 4 * n_nodes  # victims were evicted
+        assert sum(1 for n in want[1].values() if n) == n_hi
+        for n, v in base.items():
+            assert metrics.counter(n) == ref_counter(n) - v, n
+        assert metrics.counter("scheduler_preemption_batches_total") == 1
+        assert metrics.counter("scheduler_preemption_vector_hits_total") >= 1
+        assert metrics.counter("scheduler_preemption_oracle_divergence_total") == 0
+
+        for s in (ref, port):
+            s.promote()
+        for srv in (ref_server, server):
+            _wait(
+                lambda srv=srv: len(
+                    {n for name, n in _bound(srv).items() if name.startswith("hi-")}
+                ) == n_hi,
+                90, "every preemptor bound on its own node",
+            )
+    finally:
+        ref.stop()
+        port.stop()
+
+
+@pytest.mark.parametrize("corruption", ["row_out_of_range", "empty_victims"])
+def test_seeded_disagreement_trips_guard_and_falls_back(corruption):
+    """tests/test_preemptlattice.py's seeded disagreement on the port: a
+    corrupted victim-selection readback trips the preemption guard
+    (counted), every preemptor still preempts and binds through the host
+    walk, nothing is evicted from the corrupted answer, and no
+    high-priority pod is evicted."""
+    metrics.reset()
+    server = APIServer()
+    sched = Scheduler(server, _cfg(), device="cpu")
+    real = sched._run_preempt_kernel
+
+    def corrupted(snap, batch, prios):
+        out = real(snap, batch, prios)
+        if corruption == "row_out_of_range":
+            out["node"] = out["node"].copy()
+            out["node"][out["node"] >= 0] = 10_000
+        else:
+            out["victims"] = np.zeros_like(out["victims"])
+        return out
+
+    sched._run_preempt_kernel = corrupted
+    for i in range(5):
+        server.create("nodes", make_node(f"n{i}"))
+    for i in range(5):
+        for k in range(4):
+            server.create(
+                "pods", make_pod(f"low-{i}-{k}", cpu="1", labels={"app": "web"})
+            )
+    sched.start()
+    try:
+        wait_scheduled(server, [f"low-{i}-{k}" for i in range(5) for k in range(4)])
+        # a batch of 6 > small_batch_host_max keeps the burst on the wave
+        # path, where the vector engine lives
+        hi = [f"hi-{i}" for i in range(6)]
+        for n in hi:
+            p = make_pod(n, cpu="2")
+            p.spec.priority = 100
+            server.create("pods", p)
+        wait_scheduled(server, hi, timeout=90)
+        assert _counter_sum("scheduler_preemption_guard_trips_total") >= 1
+        assert metrics.counter("scheduler_preemption_vector_hits_total") == 0
+        names = [p.metadata.name for p in server.list("pods")[0]]
+        assert sum(1 for n in names if n.startswith("hi-")) == 6
+    finally:
+        sched.stop()
+
+
+def test_run_preemption_benchmark_on_the_cpu():
+    """run_preemption_benchmark at 16 nodes and a 16-pod burst: every
+    preemptor bound through the batched pass, no kernel error, no guard
+    trip, no divergence."""
+    res = harness.run_preemption_benchmark(16, 16, timeout_s=60, device="cpu")
+    assert res.scheduled == 16 and res.burst_pods == 16
+    assert res.select_batches >= 1 and res.vector_attempts > 0
+    assert res.fallbacks_by_reason.get("kernel_error", 0) == 0
+    assert res.guard_trips == 0 and res.oracle_divergences == 0
+    assert res.victims_evicted >= 2 * 16  # two 1-cpu victims per preemptor
+
+
+def test_standby_promote_adopts_like_reference():
+    """tests/test_chaos_ha.py's warm-up scenario (6 nodes, a standby that
+    pre-warms, 30 pods arriving while it stands by, then promote) on both
+    packages over the in-process API server: one pre-warm each, the
+    promotion's adoption pass counts the same outcomes, and every pod is
+    bound."""
+    from kubernetes_tpu.api import objects as ref_v1
+    from kubernetes_tpu.utils.metrics import metrics as ref_metrics
+
+    metrics.reset()
+    servers = (RefAPIServer(), APIServer())
+    for o, srv in zip((ref_v1, v1), servers):
+        for i in range(6):
+            srv.create(
+                "nodes",
+                o.Node(
+                    metadata=o.ObjectMeta(name=f"ha-{i}", namespace=""),
+                    status=o.NodeStatus(
+                        allocatable={"cpu": "8", "memory": "32Gi", "pods": 110}
+                    ),
+                ),
+            )
+    common = dict(antientropy_period_s=0, use_mesh=False)
+    ref = ref_sched_mod.Scheduler(servers[0], RefConfig(**common))
+    port = Scheduler(servers[1], KubeSchedulerConfiguration(**common), device="cpu")
+    outcomes = ("bound", "pending", "gone")
+
+    def adoptions(m):
+        return [
+            m.counter("scheduler_ha_adoptions_total", {"outcome": o})
+            for o in outcomes
+        ]
+
+    ref0, w0 = adoptions(ref_metrics), ref_metrics.counter(
+        "scheduler_ha_standby_warmups_total"
+    )
+    try:
+        for s in (ref, port):
+            s.start_standby(identity="warmup")
+        assert ref_metrics.counter("scheduler_ha_standby_warmups_total") == w0 + 1
+        assert metrics.counter("scheduler_ha_standby_warmups_total") == 1
+        assert port._standby_thread is not None
+        for o, srv in zip((ref_v1, v1), servers):
+            for i in range(30):
+                srv.create(
+                    "pods",
+                    o.Pod(
+                        metadata=o.ObjectMeta(name=f"wu-{i}"),
+                        spec=o.PodSpec(
+                            containers=[o.Container(requests={"cpu": "100m"})]
+                        ),
+                    ),
+                )
+        for s in (ref, port):
+            _wait(lambda s=s: len(s.queue) == 30, 30, "the standby to queue 30 pods")
+            s.promote()
+        assert port._standby_thread is None
+        assert metrics.counter("scheduler_ha_promotions_total") == 1
+        got = adoptions(metrics)
+        assert got == [a - b for a, b in zip(adoptions(ref_metrics), ref0)]
+        assert got == [0, 30, 0]
+        for srv in servers:
+            _wait(lambda srv=srv: len(_bound(srv)) == 30, 60, "30 pods bound")
+    finally:
+        ref.stop()
+        port.stop()
