@@ -71,13 +71,37 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    500 pods queued while it stands by, promote(), all 500 bound; the
    warm-up seconds and the promotion ms. Requires exactly one standby
    warm-up and all 500 bound, with the bindings checked.
+10. [audit] (right after phase 5, on its cluster: the API server's 5,000
+   nodes and 6,000 bound pods, encoded on the card and on the CPU): 16
+   rows of `requested` and `valid` corrupted in device state; one
+   audit_once() must report exactly those rows, repair and confirm them
+   with no rebuild, the card's report equal to the CPU's; one clean pass
+   and fetch_device_rows of 64 rows timed (p50 of 20).
+11. [hostcb]: phase 5's run with host_callback_binds=True: 5000/5000
+   bound, 0 guard trips, 0 blocking readbacks, every launched wave
+   batch's payload taken from a delivery, the ticket registry's backlog
+   back to its start, K1 launched, each pod bound once.
+12. [guards] and [device-loss] on a 500-node cluster (SchedulingPodAffinity's
+   nodes, 100 pre-bound pods; the host path binds a quarantined batch
+   in seconds there) with the fault injector (testing/device_faults.py):
+   a NaN score and a wild row quarantine their batches, K =
+   device_loss_disable_after consecutive trips latch the device down; a
+   lost launch recovers on the device after the real card's probe, every
+   launch (wave or serial) lost latches after K losses. Every pod bound
+   exactly once, none oversubscribed, no assume leaked.
+
+The Scheduler phases (5-9, 11) print the auditor's passes, its skips by
+reason, drift rows, rebuilds and scheduler_device_down, and fail unless
+the last three are 0. Every phase but the fault phases fails on any ERROR
+record the port logs; a fault phase fails on any ERROR it did not cause.
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 5, 6, 7, 8 and 9) and read just after. The last lines are the card's
-name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON line with
-each kernel's launches on the Scheduler's burst run (``launches``), the
-latency run (``launches_latency``), the serial, preemption and standby
-runs (``launches_serial``, ``launches_preempt``, ``launches_standby``),
+2, 5, 6, 7, 8, 9 and 11) and read just after. The last lines are the
+card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
+line with each kernel's launches on the Scheduler's burst run
+(``launches``), the latency run (``launches_latency``), the serial,
+preemption, standby and host-callback runs (``launches_serial``,
+``launches_preempt``, ``launches_standby``, ``launches_hostcb``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -465,6 +489,41 @@ class ErrorLog(logging.Handler):
                 log(f"[{what}] ERROR logged: {r.name}: {r.getMessage()}")
             raise AssertionError(f"[{what}] {len(self.records)} ERROR records logged")
 
+    def expect(self, what: str, allowed) -> int:
+        """The end of a fault phase, which logs ERRORs on purpose: every
+        record since the phase began must contain one of the `allowed`
+        messages, any other fails the run. Clears the records and returns
+        how many there were."""
+        records, self.records = self.records, []
+        other = [r for r in records if not any(a in r.getMessage() for a in allowed)]
+        for r in other[:5]:
+            log(f"[{what}] unexpected ERROR logged: {r.name}: {r.getMessage()}")
+        if other:
+            raise AssertionError(f"[{what}] {len(other)} ERROR records it did not cause")
+        return len(records)
+
+
+def defense_report(what: str, card: str, res=None, sched=None) -> dict:
+    """The data-plane defense of one Scheduler phase: the auditor's passes,
+    its skipped passes by reason, the drift rows and rebuilds it found,
+    and scheduler_device_down, from a harness result (res) or from the
+    metrics since the last reset and the Scheduler's latch (sched). Fails
+    unless drift rows, rebuilds and device-down are all 0."""
+    from kubernetes_tpu_torch.perf.harness import defense_counts
+
+    if res is not None:
+        d = {k: getattr(res, k) for k in (
+            "audit_passes", "audit_skips", "drift_rows", "rebuilds", "device_down")}
+    else:
+        d = {**defense_counts(), "device_down": int(sched._device_down)}
+    log(f"[{what}] auditor: {d['audit_passes']} passes, skipped "
+        f"{json.dumps(d['audit_skips'], sort_keys=True)}; drift rows "
+        f"{d['drift_rows']}, rebuilds {d['rebuilds']}; scheduler_device_down "
+        f"{d['device_down']}; card {card}")
+    if d["drift_rows"] or d["rebuilds"] or d["device_down"]:
+        raise AssertionError(f"[{what}] drift, a rebuild or the device latched down")
+    return d
+
 
 def check_bindings(server, n_measured: int, what: str) -> None:
     """The correctness gate on the API server's bindings: every pod bound,
@@ -526,6 +585,7 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
         f"{warm.scheduled}/{warm.num_measured_pods} bound, "
         f"{warm.throughput_pods_per_s:.1f} pods/s ({time.perf_counter() - t0:.1f} s in all)")
     errors.check("scheduler warm-up")
+    defense_report("scheduler warm-up", card, res=warm)
 
     server = APIServer()
     fit_kernels.fit_mask.launches = 0
@@ -546,6 +606,7 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
         f"{res.max_waves_inflight}; K1 launches {k1}, K2 launches {k2}; guard "
         f"trips {trips}, unwound assumes {unwound}; card {card}")
     errors.check("scheduler")
+    defense_report("scheduler", card, res=res)
     if res.scheduled != res.num_measured_pods or res.unscheduled:
         raise AssertionError(f"[scheduler] {res.unscheduled} measured pods not bound")
     if trips or unwound:
@@ -554,10 +615,10 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
         raise AssertionError("[scheduler] the Scheduler never launched K1")
 
     check_bindings(server, wl.num_measured_pods, "scheduler")
-    return res, k1, k2
+    return res, k1, k2, server
 
 
-def phase_latency(device, burst_pods_per_s: float, errors: ErrorLog):
+def phase_latency(device, burst_pods_per_s: float, errors: ErrorLog, card: str):
     from kubernetes_tpu_torch.perf.harness import run_latency_benchmark
     from kubernetes_tpu_torch.perf.workloads import WORKLOADS
 
@@ -577,6 +638,7 @@ def phase_latency(device, burst_pods_per_s: float, errors: ErrorLog):
         f"max in flight {lat.max_waves_inflight}; guard trips {lat.guard_trips}, "
         f"unwound assumes {lat.unwound_assumes}")
     errors.check("latency")
+    defense_report("latency", card, res=lat)
     if lat.scheduled != 500:
         raise AssertionError(f"[latency] {lat.scheduled}/500 bound")
     return lat
@@ -856,6 +918,7 @@ def phase_serial(device, card: str, errors: ErrorLog) -> dict:
         f"{k1}, K2 launches {k2}; guard trips {res.guard_trips}, unwound assumes "
         f"{res.unwound_assumes}; card {card}")
     errors.check("serial")
+    defense_report("serial", card, res=res)
     if res.scheduled != res.num_measured_pods or res.unscheduled:
         raise AssertionError(f"[serial] {res.unscheduled} measured pods not bound")
     if res.guard_trips or res.unwound_assumes:
@@ -887,6 +950,7 @@ def phase_preempt(device, card: str, errors: ErrorLog) -> dict:
         f"p50/p99 {res.select_p50_ms:.3f}/{res.select_p99_ms:.3f} ms; K1 launches "
         f"{k1}, K2 launches {k2}; card {card}")
     errors.check("preempt")
+    defense_report("preempt", card, res=res)
     if res.scheduled != res.burst_pods:
         raise AssertionError(f"[preempt] {res.scheduled}/{res.burst_pods} bound")
     if res.vector_attempts <= 0:
@@ -953,6 +1017,7 @@ def phase_standby(device, card: str, errors: ErrorLog) -> dict:
         sched.stop()
     k1 = fit_kernels.fit_mask.launches
     k2 = fit_kernels.fit_mask_least_alloc.launches
+    defense_report("standby", card, sched=sched)
     adopted = metrics.counter("scheduler_ha_adoptions_total", {"outcome": "pending"})
     log(f"[standby] {len(nodes)} nodes: start_standby (informer sync, snapshot, kernel "
         f"pre-warm) {warm_s:.3f} s, standby warm-ups {warmups:.0f} (K1 launches "
@@ -967,6 +1032,355 @@ def phase_standby(device, card: str, errors: ErrorLog) -> dict:
         raise AssertionError(f"[standby] {bound}/{n_pods} bound")
     check_bindings(server, n_pods, "standby")
     return {"k1": k1, "k2": k2, "warm_s": warm_s, "promote_ms": promote_ms}
+
+
+def phase_audit(server, device, card: str, errors: ErrorLog) -> dict:
+    """[audit] on the [scheduler] phase's cluster after its burst (5,000
+    nodes and the 6,000 pods the API server holds bound): the snapshot
+    encoded on the card and, the same way, on the CPU; 16 rows of
+    `requested` and `valid` corrupted in device state on both
+    (corrupt_device_rows); one audit_once() on each must report exactly
+    those rows in both fields, repair them (the fetched rows equal the
+    masters afterwards) and rebuild nothing, and the card's report must
+    equal the CPU's. Then the card's clean pass (p50 of 20) and
+    fetch_device_rows of 64 rows (p50 of 20) are timed."""
+    from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
+    from kubernetes_tpu_torch.scheduler.antientropy import SnapshotAntiEntropy
+    from kubernetes_tpu_torch.testing.device_faults import corrupt_device_rows
+
+    errors.check("before audit")
+    nodes = server.list("nodes")[0]
+    pods = [p for p in server.list("pods")[0] if p.spec.node_name]
+
+    def build(dev):
+        enc = SnapshotEncoder(EncodingConfig.for_cluster(len(nodes)), device=dev)
+        for n in nodes:
+            enc.add_node(n)
+        for p in pods:
+            enc.add_pod(p.spec.node_name, p)
+        enc.flush()
+        return enc
+
+    t0 = time.perf_counter()
+    encs = {"card": build(device), "cpu": build(torch.device("cpu"))}
+    build_s = time.perf_counter() - t0
+    live = [r for r, nm in enumerate(encs["card"].row_names) if nm]
+    rows = live[0:64:4]  # 16 rows inside the auditor's first 64-row window
+    reports = {}
+    for where, enc in encs.items():
+        corrupt_device_rows(enc, rows, field="requested")
+        corrupt_device_rows(enc, rows, field="valid")
+        rep = SnapshotAntiEntropy(enc, sample_rows=64).audit_once()
+        reports[where] = (
+            rep["rows_audited"], rep["device_drift"], rep["master_repaired"], rep["rebuilt"]
+        )
+        if rep["device_drift"] != {"requested": rows, "valid": rows}:
+            raise AssertionError(f"[audit] {where}: drift report {rep['device_drift']}")
+        if rep["master_repaired"] or rep["rebuilt"] or rep["rows_audited"] != 64:
+            raise AssertionError(f"[audit] {where}: report {rep}")
+        fetched = enc.fetch_device_rows(rows)
+        for field, got in fetched.items():
+            if not np.array_equal(got, enc._master_of(field)[rows]):
+                raise AssertionError(f"[audit] {where}: {field} not repaired")
+    if reports["card"] != reports["cpu"]:
+        raise AssertionError(f"[audit] card report {reports['card']} != CPU {reports['cpu']}")
+    enc = encs["card"]
+    aud = SnapshotAntiEntropy(enc, sample_rows=64)
+    pass_ms, fetch_ms = [], []
+    window = live[:64]
+    for _ in range(20):
+        t0 = time.perf_counter()
+        rep = aud.audit_once()
+        pass_ms.append((time.perf_counter() - t0) * 1e3)
+        if rep["device_drift"] or rep["master_repaired"] or rep["rebuilt"]:
+            raise AssertionError(f"[audit] a clean pass reported {rep}")
+        t0 = time.perf_counter()
+        enc.fetch_device_rows(window)
+        fetch_ms.append((time.perf_counter() - t0) * 1e3)
+    row_bytes = sum(
+        getattr(enc._device, f)[0].numel() * getattr(enc._device, f).element_size()
+        for f in enc.ROW_FIELDS
+    )
+    out = {
+        "pass_p50_ms": float(np.median(pass_ms)),
+        "fetch_p50_ms": float(np.median(fetch_ms)),
+        "fetch_bytes": 64 * row_bytes,
+    }
+    log(f"[audit] {len(live)} nodes, {len(pods)} pods (built on the card and the CPU "
+        f"in {build_s:.1f} s): 16 rows of requested and valid corrupted, one pass "
+        f"reported exactly those rows in both fields on both, repaired and confirmed "
+        f"them, no rebuild; card report == CPU report {reports['card'][:2]}; clean "
+        f"pass p50 {out['pass_p50_ms']:.3f} ms (64 rows), fetch_device_rows of 64 "
+        f"rows p50 {out['fetch_p50_ms']:.3f} ms ({out['fetch_bytes']} bytes, "
+        f"{len(enc.ROW_FIELDS)} fields); card {card}")
+    errors.check("audit")
+    return out
+
+
+def ledger_server():
+    """An APIServer that counts the binds it applies per pod uid, for the
+    fault phases' "every pod bound exactly once"."""
+    from collections import defaultdict
+
+    from kubernetes_tpu_torch.client.apiserver import APIServer
+
+    class LedgerServer(APIServer):
+        def __init__(self):
+            super().__init__()
+            self.applied = defaultdict(int)
+
+        def bind_pods(self, bindings, fence=None):
+            errs = super().bind_pods(bindings, fence=fence)
+            for b, err in zip(bindings, errs):
+                if err is None:
+                    self.applied[b.pod_uid] += 1
+            return errs
+
+    return LedgerServer()
+
+
+# the fault phases' cluster: SchedulingPodAffinity's 500 nodes with its 100
+# initial pods pre-bound, small enough that a batch quarantined to the host
+# filter chain binds in seconds
+FAULT_CLUSTER = ("SchedulingPodAffinity", 500, 100)
+
+
+def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds) -> dict:
+    """One Scheduler (the reference's defaults plus cfg_kw) on the fault
+    cluster with a DeviceFaultInjector(**inj_kw); the measured pods arrive
+    in `rounds` (each round waits until its pods are bound). Fails unless
+    every pod is bound exactly once, no node is oversubscribed, no pod
+    sits outside its required zone affinity and no assume leaks. Returns
+    the defense counters by label, the injections, the host-path pod
+    count, the ladder's probe answers and K1's launches."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import default_config
+    from kubernetes_tpu_torch.perf.workloads import WorkloadConfig, build_workload
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.testing.device_faults import DeviceFaultInjector
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    name, n_nodes, n_init = FAULT_CLUSTER
+    nodes, init_pods, factory = build_workload(
+        WorkloadConfig(name, n_nodes, n_init, sum(rounds))
+    )
+    server = ledger_server()
+    for n in nodes:
+        server.create("nodes", n)
+    for i, p in enumerate(init_pods):
+        p.spec.node_name = nodes[(7 * i) % len(nodes)].metadata.name
+        server.create("pods", p)
+    metrics.reset()
+    sched = Scheduler(server, default_config(**cfg_kw), device=device)
+    inj = DeviceFaultInjector(**inj_kw).install(sched)
+    host = []
+    one_host = sched._schedule_one_host
+
+    def counted_host(pi, moves):
+        host.append(pi.pod.metadata.name)
+        return one_host(pi, moves)
+
+    sched._schedule_one_host = counted_host
+    probes = []
+
+    def probe(dev):
+        ok = type(sched)._device_probe(dev)
+        probes.append(ok)
+        return ok
+
+    sched._device_probe = probe
+    fit_kernels.fit_mask.launches = 0
+    created = 0
+    t0 = time.perf_counter()
+    try:
+        sched.start()
+        for n in rounds:
+            for i in range(created, created + n):
+                server.create("pods", factory(i))
+            created += n
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                bound = server.count(
+                    "pods", lambda p: p.metadata.name.startswith("pod-") and bool(p.spec.node_name)
+                )
+                if bound >= created:
+                    break
+                time.sleep(0.02)
+            else:
+                raise AssertionError(f"[{what}] {bound}/{created} pods bound")
+        deadline = time.monotonic() + 10
+        while sched.cache.assumed_keys() and time.monotonic() < deadline:
+            time.sleep(0.02)
+        leaked = list(sched.cache.assumed_keys())
+    finally:
+        sched.stop()
+        inj.uninstall()
+    wall = time.perf_counter() - t0
+    if leaked:
+        raise AssertionError(f"[{what}] leaked assumes: {leaked[:3]}")
+    twice = {u: c for u, c in server.applied.items() if c != 1}
+    if twice:
+        raise AssertionError(f"[{what}] {len(twice)} pods bound more than once")
+    check_bindings(server, created, what)
+
+    def by_label(name):
+        return {
+            next(iter(labels.values()), ""): int(v)
+            for _n, labels, v in metrics.snapshot_counters(name) if v
+        }
+
+    return {
+        "pods": created, "wall_s": wall, "host": len(host),
+        "trips": by_label("kernel_guard_trips_total"),
+        "losses": by_label("scheduler_device_loss_total"),
+        "retries": by_label("scheduler_device_retries_total"),
+        "unwound": int(metrics.counter("scheduler_wave_trailing_unwound_assumes_total")),
+        "device_down": int(sched._device_down),
+        "injected": sorted({k for k, _ in inj.injected}),
+        "probes": probes, "k1": fit_kernels.fit_mask.launches,
+    }
+
+
+def fault_line(what: str, case: str, r: dict, card: str) -> None:
+    log(f"[{what}] {case}: {r['pods']} pods bound exactly once in {r['wall_s']:.2f} s "
+        f"({r['host']} through the host path), none oversubscribed, no leaked "
+        f"assume; injected {r['injected']}; guard trips {json.dumps(r['trips'], sort_keys=True)}; "
+        f"device losses {json.dumps(r['losses'], sort_keys=True)}, retries "
+        f"{json.dumps(r['retries'], sort_keys=True)}; unwound assumes {r['unwound']}; "
+        f"probe answers {r['probes']}; scheduler_device_down {r['device_down']}; "
+        f"K1 launches {r['k1']}; card {card}")
+
+
+GUARD_ERRORS = (
+    "kernel output guard tripped",
+    "trailing readback validation tripped",
+    "consecutive kernel guard trips: abandoning the device path",
+)
+LOSS_ERRORS = (
+    "wave launch failed with device loss",
+    "device loss on serial batch kernel persists",
+    "consecutive device-loss events without a successful launch",
+)
+
+
+def phase_guards(device, card: str, errors: ErrorLog) -> dict:
+    """[guards] on the fault cluster (500 nodes, 100 pre-bound pods):
+    NaN scores on the first trailing (score) readback and a wild chosen
+    row on the second index readback, 100 + 100 pods: both trips counted
+    by reason, the wild batch quarantined to the host path, the device not
+    latched. Then a fresh Scheduler whose first K index readbacks are all
+    wild (K = device_loss_disable_after): K consecutive trips latch the
+    device down and the host path binds the rest (4 rounds of 30 pods)."""
+    from kubernetes_tpu_torch.perf.harness import default_config
+
+    errors.check("before guards")
+    k = default_config().device_loss_disable_after
+    one = run_fault(
+        device, "guards", dict(nan_scores_on_readbacks={0}, wild_rows_on_readbacks={1}),
+        {}, [100, 100],
+    )
+    fault_line("guards", "NaN score on readback 0, wild row on readback 1", one, card)
+    if not (one["trips"].get("nonfinite_score") and one["trips"].get("row_out_of_range")):
+        raise AssertionError(f"[guards] trips {one['trips']}")
+    if one["host"] <= 0 or one["device_down"]:
+        raise AssertionError("[guards] no host-path quarantine, or the device latched")
+    latch = run_fault(
+        device, "guards", dict(wild_rows_on_readbacks=set(range(k))), {}, [30] * (k + 1),
+    )
+    fault_line("guards", f"{k} consecutive wild-row readbacks", latch, card)
+    if latch["trips"].get("row_out_of_range") != k or not latch["device_down"]:
+        raise AssertionError(f"[guards] {k} trips did not latch the device down")
+    n_err = errors.expect("guards", GUARD_ERRORS)
+    log(f"[guards] {n_err} ERROR records, all caused by the injected faults")
+    return {"one": one, "latch": latch}
+
+
+def phase_device_loss(device, card: str, errors: ErrorLog) -> dict:
+    """[device-loss] on the fault cluster, three cases: (a) the first wave
+    launch lost with no retry budget (device_retry_attempts=0): the ladder
+    probes the real card, which answers, the device stays up and the
+    requeued batch binds on the device; (b) every wave launch lost: after
+    device_loss_disable_after losses (each after its retries) the device
+    latches down and the host path binds the rest; (c) the same on the
+    serial path (use_wave=False, every serial launch lost, one 30-pod
+    batch per round)."""
+    from kubernetes_tpu_torch.perf.harness import default_config
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    errors.check("before device-loss")
+    k = default_config().device_loss_disable_after
+    if not Scheduler._device_probe(device):
+        raise AssertionError("[device-loss] the card's probe answered False")
+    blip = run_fault(
+        device, "device-loss", dict(fail_launches={0}), dict(device_retry_attempts=0), [120],
+    )
+    fault_line("device-loss", "launch 0 lost, no retry budget", blip, card)
+    if blip["losses"] != {"launch": 1} or blip["probes"] != [True] or blip["device_down"]:
+        raise AssertionError("[device-loss] a single loss did not recover on the device")
+    if blip["host"] or (device.type == "cuda" and blip["k1"] <= 0):
+        raise AssertionError("[device-loss] the recovered batch did not bind on the device")
+    dead = run_fault(device, "device-loss", dict(fail_all_launches=True), {}, [120])
+    fault_line("device-loss", "every wave launch lost", dead, card)
+    if dead["losses"] != {"launch": k} or not dead["device_down"] or dead["host"] != 120:
+        raise AssertionError("[device-loss] the wave path did not latch to the host path")
+    serial = run_fault(
+        device, "device-loss", dict(fail_all_serials=True), dict(use_wave=False),
+        [30] * (k + 1),
+    )
+    fault_line("device-loss", "every serial launch lost (use_wave=False)", serial, card)
+    if serial["losses"] != {"serial": k} or not serial["device_down"]:
+        raise AssertionError("[device-loss] the serial path did not latch")
+    n_err = errors.expect("device-loss", LOSS_ERRORS)
+    log(f"[device-loss] {n_err} ERROR records, all caused by the injected losses")
+    return {"blip": blip, "dead": dead, "serial": serial}
+
+
+def phase_hostcb(device, card: str, errors: ErrorLog) -> dict:
+    """[hostcb] SchedulingPodAffinity/5000 through run_benchmark with
+    host_callback_binds=True: every fast payload delivered by the delivery
+    thread. Fails unless 5000/5000 bound (bindings checked), 0 guard trips,
+    0 blocking readbacks, deliveries == launched wave batches, the ticket
+    registry's backlog back where it started, and K1 launched."""
+    from kubernetes_tpu_torch.ops import fit_kernels, hostcallback
+    from kubernetes_tpu_torch.perf.harness import default_config, run_benchmark
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    errors.check("before hostcb")
+    wl = WORKLOADS["SchedulingPodAffinity/5000"]
+    server = ledger_server()
+    backlog0 = hostcallback.backlog()
+    fit_kernels.fit_mask.launches = 0
+    fit_kernels.fit_mask_least_alloc.launches = 0
+    res = run_benchmark(
+        wl, sched_config=default_config(host_callback_binds=True), device=device,
+        server=server, timeout_s=300,
+    )
+    k1 = fit_kernels.fit_mask.launches
+    k2 = fit_kernels.fit_mask_least_alloc.launches
+    delivered = int(metrics.counter("scheduler_wave_hostcb_deliveries_total"))
+    launched = int(metrics.counter("scheduler_wave_batches_total"))
+    blocking = int(metrics.counter("scheduler_wave_readbacks_blocking_total"))
+    backlog = hostcallback.backlog() - backlog0
+    log(f"[hostcb] SchedulingPodAffinity/5000, host_callback_binds=True: "
+        f"{res.scheduled}/{res.num_measured_pods} bound in {res.duration_s:.3f} s = "
+        f"{res.throughput_pods_per_s:.1f} pods/s; e2e p50/p99 {res.e2e_p50_ms:.1f}/"
+        f"{res.e2e_p99_ms:.1f} ms; {launched} wave batches, {delivered} payloads "
+        f"taken from deliveries, {blocking} blocking readbacks, registry backlog "
+        f"{backlog:+d}; guard trips {res.guard_trips}; K1 launches {k1}, K2 "
+        f"launches {k2}; card {card}")
+    errors.check("hostcb")
+    defense_report("hostcb", card, res=res)
+    if res.scheduled != res.num_measured_pods or res.guard_trips:
+        raise AssertionError("[hostcb] pods unbound or guard trips")
+    if blocking or delivered != launched or launched <= 0 or backlog:
+        raise AssertionError("[hostcb] a payload was not delivered, or a ticket leaked")
+    if k1 <= 0:
+        raise AssertionError("[hostcb] the Scheduler never launched K1")
+    if any(c != 1 for c in server.applied.values()):
+        raise AssertionError("[hostcb] a pod was bound more than once")
+    check_bindings(server, wl.num_measured_pods, "hostcb")
+    return {"res": res, "k1": k1, "k2": k2}
 
 
 def main(argv=None) -> int:
@@ -1019,10 +1433,12 @@ def main(argv=None) -> int:
     phase_parity(mp, device)
     serial_batch_check(mp, device)
 
-    res, k1_launches, k2_launches = phase_scheduler(device, card, errors)
+    res, k1_launches, k2_launches, sched_server = phase_scheduler(device, card, errors)
+    phase_audit(sched_server, device, card, errors)
+    del sched_server
     fit_kernels.fit_mask.launches = 0
     fit_kernels.fit_mask_least_alloc.launches = 0
-    phase_latency(device, res.throughput_pods_per_s, errors)
+    phase_latency(device, res.throughput_pods_per_s, errors, card)
     k1_latency = fit_kernels.fit_mask.launches
     k2_latency = fit_kernels.fit_mask_least_alloc.launches
     log(f"[latency] K1 launches {k1_latency}, K2 launches {k2_latency}")
@@ -1036,12 +1452,16 @@ def main(argv=None) -> int:
     standby = phase_standby(device, card, errors)
     if standby["k1"] <= 0:
         raise AssertionError("[standby] the warm-up and the promoted loop never launched K1")
+    hostcb = phase_hostcb(device, card, errors)
+    phase_guards(device, card, errors)
+    phase_device_loss(device, card, errors)
 
     def launches(k):
         return {
             "launches_serial": serial[k],
             "launches_preempt": preempt[k],
             "launches_standby": standby[k],
+            "launches_hostcb": hostcb[k],
         }
 
     kernels = {

@@ -16,15 +16,19 @@ writer (the wave launch, a flush scatter) mutates the tensors its
 private — the sealed live generation when no reader pins it, a fresh
 ``clone()`` when one does — so a pinned reader never sees them change.
 
-Not ported yet (later slices): ``whatif_overlay``, ``fetch_device_rows``,
-``set_sharding``, ``warm_scatter_programs`` (an XLA-compile warmer with
-no counterpart here), ``swap_live_snapshot`` and the anti-entropy
-audit's device-row gather. ``add_pods_bulk`` (the cache's bulk assume),
-the row-aggregate repair the cache's unwind path calls,
-``utilization_stats`` and the PDB budget column refresh
-(``update_pdb_blocked``, read by ``ops/preemptlattice.py``; its rows go
-up with the next flush's dirty-row scatter) are copied from the
-reference.
+The snapshot auditor's hooks are here: ``fetch_device_rows`` (its
+device-row gather, one ``index_select`` per row-major field under a
+generation pin and one device->host copy, ordered on the device's
+default stream after the writes that produced the pinned generation),
+``swap_live_snapshot`` (the fault injector's install hook, copied) and
+``has_pending_updates``. Not ported yet: ``whatif_overlay`` (ROADMAP
+queue 1 item 7), ``set_sharding`` (item 8) and ``warm_scatter_programs``
+(an XLA-compile warmer with no counterpart in eager torch).
+``add_pods_bulk`` (the cache's bulk assume), the row-aggregate repair the
+cache's unwind path calls, ``utilization_stats`` and the PDB budget
+column refresh (``update_pdb_blocked``, read by
+``ops/preemptlattice.py``; its rows go up with the next flush's dirty-row
+scatter) are copied from the reference.
 
 The reference's design notes follow.
 
@@ -83,6 +87,7 @@ all int32. Nodes with >2 TiB of a single resource clamp to int32 max.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import threading
 import time
@@ -1627,6 +1632,86 @@ class SnapshotEncoder:
         self._full_upload = True
         self._content_invalid = True
 
+    def swap_live_snapshot(self, snap: DeviceSnapshot) -> None:
+        """Testing/fault-injection hook: install `snap` — typically the
+        live snapshot with one field replaced — as a new generation that
+        SHARES the remaining buffers with its predecessor (so a donating
+        advance copies while any pin on the predecessor drains). The
+        production write paths never call this; kernel outputs install
+        through the wave launch's donation lease.
+
+        (Design note, kept from the old `set_device_snapshot`: the wave
+        kernel donates the input snapshot and returns it with batch
+        commits applied; the scheduler replays the same commits into the
+        host masters via cache assume → add_pod, so a subsequent row-set
+        flush writes identical values — device and host stay convergent
+        without a delta-add protocol, as long as replay happens before
+        the next flush.)"""
+        self._install_generation(snap, shared_with_base=True)
+
+    # every row-major (per-node) DeviceSnapshot field, for device-vs-master
+    # audits; globals (band_prio, eterm metadata) are compared wholesale
+    ROW_FIELDS = tuple(
+        f for f in DeviceSnapshot._fields
+        if f not in ("eterm_topo_key", "eterm_kind", "band_prio")
+    )
+
+    def fetch_device_rows(self, rows: List[int]) -> Optional[Dict[str, np.ndarray]]:
+        """Gather the sampled rows of every row-major device field to host
+        in ONE transfer (the audit's read side). None when no device
+        snapshot exists yet.
+
+        Runs under a generation pin, NOT a lock: the pinned generation's
+        tensors cannot be donated while the lease is held (a concurrent
+        wave launch advances through a copy), so this gather may overlap
+        a donating launch freely. One ``index_select`` per field, the
+        results packed as bytes into one buffer, one device->host copy.
+        Eager torch compiles nothing, so the reference's pad buckets for
+        the gather index are not needed.
+
+        Ordering (the reference blocks on the pinned buffers first): the
+        auditor calls this from its own thread, while the scatter or the
+        wave kernel that produced the pinned generation was queued by the
+        scheduling loop. Every such writer queues on the device's default
+        stream (the loop enters no other stream; the split-phase side
+        stream of ``scheduler/wavepath.HostCopy`` only reads kernel
+        outputs, never snapshot tensors), and the pin is taken after that
+        generation was installed, i.e. after its writes were queued. The
+        gather runs on the same default stream, so it reads what those
+        writes left; the copy to the host waits for it before the pin is
+        released, so no retired generation's memory is reused under it."""
+        if not rows:
+            return None
+        with self.pin_generation() as lease:
+            snap = lease.snap
+            if snap is None:
+                return None
+            dev = snap.valid.device
+            stream = (
+                torch.cuda.stream(torch.cuda.default_stream(dev))
+                if dev.type == "cuda"
+                else contextlib.nullcontext()
+            )
+            with stream:
+                idx = torch.as_tensor(np.asarray(rows, np.int64)).to(dev)
+                parts = [
+                    getattr(snap, name).index_select(0, idx)
+                    for name in self.ROW_FIELDS
+                ]
+                host = torch.cat(
+                    [t.reshape(-1).view(torch.uint8) for t in parts]
+                ).cpu().numpy()
+        out: Dict[str, np.ndarray] = {}
+        off = 0
+        for name, t in zip(self.ROW_FIELDS, parts):
+            dtype = _NUMPY_DTYPE[t.dtype]
+            nbytes = t.numel() * dtype.itemsize
+            out[name] = (
+                host[off : off + nbytes].view(dtype).reshape(tuple(t.shape)).copy()
+            )
+            off += nbytes
+        return out
+
     # -- row aggregates (the cache's replay-failure unwind) ---------------
 
     def _master_of(self, field: str) -> np.ndarray:
@@ -1780,6 +1865,18 @@ class UtilizationStats(NamedTuple):
 # columns, replaced wholesale on flush instead of row-scattered).
 _GLOBAL_FIELDS = frozenset({"eterm_topo_key", "eterm_kind", "band_prio"})
 
+
+
+# torch dtype -> numpy dtype of the snapshot fields (fetch_device_rows)
+_NUMPY_DTYPE = {
+    d: np.dtype(n)
+    for d, n in (
+        (torch.bool, np.bool_), (torch.uint8, np.uint8), (torch.int8, np.int8),
+        (torch.int16, np.int16), (torch.int32, np.int32),
+        (torch.int64, np.int64), (torch.float32, np.float32),
+        (torch.float64, np.float64),
+    )
+}
 
 
 def _upload(masters: DeviceSnapshot, device: torch.device) -> DeviceSnapshot:

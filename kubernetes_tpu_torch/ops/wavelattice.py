@@ -55,7 +55,13 @@ Where the two frameworks differ, and what this port does about it:
   code does: ``use_pallas_fit`` routes ``fits0`` through
   ``fit_kernels.fit_mask`` (the CUDA kernel on the card).
 
-The ``io_callback`` variant ``make_wave_kernel_cb_jit`` is a later slice.
+The ``io_callback`` variant ``make_wave_kernel_cb_jit`` is
+``make_wave_kernel_cb``: torch has no ``io_callback``, so the kernel hands
+its fast index payload to a ``post(ticket, chosen, placed, deferred)``
+callable right after its launches are queued, and the caller's ``post``
+(``scheduler/wavepath.HostCallbackDelivery``) starts the device->host copy
+and delivers the payload to ``ops/hostcallback`` from a thread that waits
+on the copy's CUDA event.
 """
 
 from __future__ import annotations
@@ -706,4 +712,46 @@ def make_wave_kernel(
     return WaveKernel(
         v_cap, m_cand, n_waves, hard_pod_affinity_weight, use_pallas_fit,
         score_refresh, rtc_shape, has_pinned,
+    )
+
+
+class WaveKernelCB:
+    """The ``host_callback_binds`` variant of the wave kernel (the
+    reference's ``make_wave_kernel_cb_jit``): identical compute, plus the
+    hand-off of the fast index payload (chosen/placed/deferred) under a
+    per-launch ``ticket``. Where the reference's ``io_callback`` makes the
+    device post the payload to ``ops/hostcallback`` when the kernel
+    resolves, here ``post(ticket, chosen, placed, deferred)`` is called
+    with the output tensors once the kernel's launches are queued; the
+    caller's ``post`` must start their device->host copy and arrange for
+    ``hostcallback.deliver`` once it lands. The full WaveResult is still
+    returned: the trailing bulk validation and the failure paths
+    (resolvable_tpl) read it the ordinary way."""
+
+    def __init__(self, base: WaveKernel):
+        self.base = base
+
+    def with_noise(self, snap, tb, pt, weights, noise, ticket, post):
+        new_snap, res = self.base.with_noise(snap, tb, pt, weights, noise)
+        post(ticket, res.chosen, res.placed, res.deferred)
+        return new_snap, res
+
+
+def make_wave_kernel_cb(
+    v_cap: int,
+    m_cand: int = 128,
+    n_waves: int = 8,
+    hard_pod_affinity_weight: float = 1.0,
+    use_pallas_fit: bool = True,
+    score_refresh: bool = True,
+    rtc_shape: tuple = DEFAULT_RTC_SHAPE,
+    has_pinned: bool = True,
+) -> WaveKernelCB:
+    """The reference's ``make_wave_kernel_cb_jit`` signature; see
+    :class:`WaveKernelCB`."""
+    return WaveKernelCB(
+        make_wave_kernel(
+            v_cap, m_cand, n_waves, hard_pod_affinity_weight,
+            use_pallas_fit, score_refresh, rtc_shape, has_pinned,
+        )
     )

@@ -6,17 +6,22 @@ PyTorch port of ``kubernetes_tpu/perf/harness.py``: ``run_benchmark`` (what
 ``APIServer``, informers and ``Scheduler``. Each entry takes ``device``
 (``None`` means the CUDA card and raises without one; the tests pass
 ``device="cpu"``). The default scheduler configuration is the reference's
-with ``antientropy_period_s=0`` (the snapshot auditor is ROADMAP queue 1
-item 6). ``trace_dir`` (the reference's ``xplane_dir``) records a
-``torch.profiler`` trace of the run body as a Chrome trace. The autoscaler,
-read-path, serving, heterogeneity, tuner, durability and defragmentation
-benchmarks wait for their modules. The throughput and latency entries
-count the kernel-output guard trips and the trailing unwound assumes of
-the whole run into their result and raise ``KernelGuardFailure`` (carrying
-that result) when either is above 0: a batch whose kernel output failed
-the guards was requeued, so its numbers would not describe a correct
-kernel. The preemption entry reports its own guard trips and fallbacks by
-reason, as the reference's does.
+defaults, the snapshot auditor on. ``trace_dir`` (the reference's
+``xplane_dir``) records a ``torch.profiler`` trace of the run body as a
+Chrome trace. The autoscaler, read-path, serving, heterogeneity, tuner,
+durability and defragmentation benchmarks wait for their modules.
+
+Every entry counts the data-plane defense of the whole run into its
+result: the auditor's passes and skipped passes by reason, the drift rows
+it found, its snapshot rebuilds and whether the device latched down; the
+throughput and latency entries also count the kernel-output guard trips
+and the trailing unwound assumes. A run in which any of drift rows,
+rebuilds, device down (or, for those two entries, guard trips or unwound
+assumes) is above 0 raises ``KernelGuardFailure`` carrying that result: a
+batch that failed the guards took the host path, and a drifted or
+rebuilt snapshot or a latched device means the numbers do not describe a
+correct run on the card. The preemption entry reports its own preemption
+guard trips and fallbacks by reason, as the reference's does.
 
 The reference's notes follow.
 
@@ -39,21 +44,25 @@ from ..api.objects import Pod
 from ..client.apiserver import APIServer
 from ..device import DeviceLike, resolve_device
 from ..scheduler import KubeSchedulerConfiguration, Scheduler
+from ..scheduler.scheduler import COUNTER_AUDIT_SKIPS
 from ..utils.metrics import metrics
 from ..utils.tracing import tracer
 from .workloads import WorkloadConfig, build_workload
 
 
 class KernelGuardFailure(RuntimeError):
-    """A run saw kernel-output guard trips or unwound assumes; ``result``
-    holds the run's BenchResult or LatencyResult."""
+    """A run saw kernel-output guard trips, unwound assumes, snapshot
+    drift or rebuilds, or the device latched down; ``result`` holds the
+    run's BenchResult, LatencyResult or PreemptionBenchResult and
+    ``failed`` the nonzero counts by name."""
 
-    def __init__(self, result):
+    def __init__(self, result, failed: Dict[str, int]):
         super().__init__(
-            f"{result.workload}: {result.guard_trips} kernel guard trips, "
-            f"{result.unwound_assumes} unwound assumes"
+            f"{getattr(result, 'workload', 'preemption')}: "
+            + ", ".join(f"{v} {k.replace('_', ' ')}" for k, v in failed.items())
         )
         self.result = result
+        self.failed = failed
 
 
 def _counter_sum(name: str) -> int:
@@ -75,18 +84,49 @@ def _guard_counts() -> tuple:
     )
 
 
-def _check_guards(result):
-    if result.guard_trips or result.unwound_assumes:
-        raise KernelGuardFailure(result)
+def defense_counts() -> dict:
+    """The auditor's passes, skipped passes by reason, drift rows and
+    rebuilds since the last metrics reset."""
+    skips: Dict[str, int] = {}
+    for _n, labels, v in metrics.snapshot_counters(COUNTER_AUDIT_SKIPS):
+        reason = labels.get("reason", "")
+        skips[reason] = skips.get(reason, 0) + int(v)
+    return dict(
+        audit_passes=_counter_sum("snapshot_audit_passes_total"),
+        audit_skips=skips,
+        drift_rows=_counter_sum("snapshot_drift_rows_total"),
+        rebuilds=_counter_sum("snapshot_rebuilds_total"),
+    )
+
+
+def _add_defense(result, sched: Scheduler, *before: dict):
+    """Fill the result's defense fields: the counts since the last reset
+    plus `before` (counts read ahead of a mid-run reset)."""
+    now = defense_counts()
+    for b in before:
+        for k in ("audit_passes", "drift_rows", "rebuilds"):
+            now[k] += b[k]
+        for r, v in b["audit_skips"].items():
+            now["audit_skips"][r] = now["audit_skips"].get(r, 0) + v
+    for k, v in now.items():
+        setattr(result, k, v)
+    result.device_down = int(sched._device_down)
+    return result
+
+
+def _check_guards(result, keys=(
+    "guard_trips", "unwound_assumes", "drift_rows", "rebuilds", "device_down",
+)):
+    failed = {k: getattr(result, k) for k in keys if getattr(result, k)}
+    if failed:
+        raise KernelGuardFailure(result, failed)
     return result
 
 
 def default_config(**overrides) -> KubeSchedulerConfiguration:
-    """The reference's defaults minus what the port does not run yet:
-    the snapshot auditor (ROADMAP queue 1 item 6)."""
-    kw = dict(antientropy_period_s=0)
-    kw.update(overrides)
-    return KubeSchedulerConfiguration(**kw)
+    """The reference's defaults (the snapshot auditor on), with
+    `overrides`."""
+    return KubeSchedulerConfiguration(**overrides)
 
 
 @dataclass
@@ -127,6 +167,15 @@ class BenchResult:
     # run (init pods included); above 0 the run raises KernelGuardFailure
     guard_trips: int = 0
     unwound_assumes: int = 0
+    # the data-plane defense over the whole run: the auditor's completed
+    # and skipped passes (by reason), drift rows, rebuilds, and the
+    # device-down latch; above 0, drift, rebuilds or device down raise
+    # KernelGuardFailure
+    audit_passes: int = 0
+    audit_skips: Dict[str, int] = field(default_factory=dict)
+    drift_rows: int = 0
+    rebuilds: int = 0
+    device_down: int = 0
     samples: List[int] = field(default_factory=list)  # scheduled count / 100ms
 
     def to_dict(self) -> dict:
@@ -188,7 +237,7 @@ def run_benchmark(
     finally:
         sched.stop()
     res.guard_trips, res.unwound_assumes = _guard_counts()
-    return _check_guards(res)
+    return _check_guards(_add_defense(res, sched))
 
 
 def _run_benchmark_body(
@@ -354,6 +403,15 @@ class LatencyResult:
     # KernelGuardFailure
     guard_trips: int = 0
     unwound_assumes: int = 0
+    # the data-plane defense over the whole run: the auditor's completed
+    # and skipped passes (by reason), drift rows, rebuilds, and the
+    # device-down latch; above 0, drift, rebuilds or device down raise
+    # KernelGuardFailure
+    audit_passes: int = 0
+    audit_skips: Dict[str, int] = field(default_factory=dict)
+    drift_rows: int = 0
+    rebuilds: int = 0
+    device_down: int = 0
 
 
 def run_latency_benchmark(
@@ -394,6 +452,7 @@ def run_latency_benchmark(
         server.create("pods", warm)
         _wait_all_scheduled(server, len(init_pods) + 1, timeout_s)
         trips0, unwound0 = _guard_counts()
+        defense0 = defense_counts()
         metrics.reset()
         # trace window matches the metrics window: the waterfall must
         # describe the measured pods, not init/warmup cycles
@@ -435,7 +494,7 @@ def run_latency_benchmark(
         if ex is not None:
             p99_tid = ex[1]
             p99_trace = tracer.get(p99_tid)
-    return _check_guards(LatencyResult(
+    res = LatencyResult(
         workload=cfg.name,
         num_nodes=cfg.num_nodes,
         rate_pods_per_s=rate_pods_per_s,
@@ -460,7 +519,8 @@ def run_latency_benchmark(
         p99_trace=p99_trace,
         guard_trips=trips0 + trips,
         unwound_assumes=unwound0 + unwound,
-    ))
+    )
+    return _check_guards(_add_defense(res, sched, defense0))
 
 
 # pod-trace stages INSIDE the scheduling cycle (everything after the
@@ -520,6 +580,15 @@ class PreemptionBenchResult:
     # scheduler_preemption_fallback_total by reason (oracle_reject,
     # kernel_error, group_overflow, batch_saturated)
     fallbacks_by_reason: Dict[str, int] = field(default_factory=dict)
+    # the data-plane defense over the whole run: the auditor's completed
+    # and skipped passes (by reason), drift rows, rebuilds, and the
+    # device-down latch; above 0, drift, rebuilds or device down raise
+    # KernelGuardFailure
+    audit_passes: int = 0
+    audit_skips: Dict[str, int] = field(default_factory=dict)
+    drift_rows: int = 0
+    rebuilds: int = 0
+    device_down: int = 0
 
 
 def run_preemption_benchmark(
@@ -614,7 +683,7 @@ def run_preemption_benchmark(
         by_reason[reason] = by_reason.get(reason, 0) + int(v)
     sel_h = metrics.histogram("scheduler_preemption_select_duration_seconds")
     p50, p99 = sel_h.quantiles((0.5, 0.99)) if sel_h else (0.0, 0.0)
-    return PreemptionBenchResult(
+    res = PreemptionBenchResult(
         num_nodes=n_nodes,
         burst_pods=burst,
         scheduled=bound,
@@ -636,6 +705,9 @@ def run_preemption_benchmark(
         select_p50_ms=p50 * 1e3,
         select_p99_ms=p99 * 1e3,
         fallbacks_by_reason=by_reason,
+    )
+    return _check_guards(
+        _add_defense(res, sched), ("drift_rows", "rebuilds", "device_down")
     )
 
 

@@ -21,8 +21,16 @@ reference's, method for method; what changed is the device half:
   still False. Each source tensor is ``record_stream``-ed on the side
   stream and each pinned buffer lives until its entry is consumed. On the
   CPU the copies are synchronous and every entry is ready.
-* Only the scheduling-loop thread issues device work; the bind pool and
-  the informer threads stay on the host.
+* Two threads issue device work: the scheduling loop, and the snapshot
+  auditor (``scheduler/antientropy.py``, on its own thread every
+  ``antientropy_period_s``). The auditor writes (a settling or repair
+  flush, a rebuild) only under the cache lock and only while the wave
+  pipeline is quiescent (nothing pending, not busy, the device not
+  down), so its writes never interleave with a batch's; its reads are
+  ``SnapshotEncoder.fetch_device_rows`` under a generation pin on the
+  device's default stream, the stream every writer queues on. The
+  ``host_callback_binds`` delivery thread only waits on copy events. The
+  bind pool and the informer threads stay on the host.
 * Accelerator settings (batch 4096, ``m_cand`` 512, the per-wave score
   refresh and the K1 fit kernel) follow ``device.type == "cuda"`` where the
   reference tests ``jax.default_backend() == "tpu"``.
@@ -41,23 +49,29 @@ reference's, method for method; what changed is the device half:
   with the informers and launches the small-bucket wave kernel and the
   serial kernel once with an unsatisfiable ghost pod before ``promote``.
 
+* The data-plane defense is the reference's: a batch that trips the
+  kernel-output guards is quarantined to the host path (newer in-flight
+  batches are pulled with ``sibling_quarantine``) and the snapshot is
+  rebuilt; a launch or readback that fails with a device-loss error
+  (``parallel/sharded.is_device_loss_error``, which knows the CUDA
+  runtime's device-gone errors and leaves program faults such as an
+  illegal address alone) gets ``device_retry_attempts`` jittered retries,
+  then the ladder of ``_handle_device_loss``; ``device_loss_disable_after``
+  consecutive trips or losses latch the device off
+  (``scheduler_device_down``) and every batch takes the host path. The
+  single-device branch of the ladder probes the card once
+  (``parallel/mesh._default_probe``); the reference's mesh shrink is
+  ROADMAP queue 1 item 8.
+* ``host_callback_binds=True`` launches ``ops/wavelattice.make_wave_kernel_cb``
+  under a ``ops/hostcallback`` ticket: the fast index payload's split-phase
+  copy goes to ``wavepath.HostCallbackDelivery``, whose thread delivers it
+  to the registry when the copy's event fires, and the resolve takes the
+  delivery instead of reading the copy itself.
+
 Not ported yet (construction raises ``NotImplementedError`` naming the
-ROADMAP queue 1 item): ``host_callback_binds=True`` (item 5),
-``antientropy_period_s > 0`` and the device-loss retry ladder (item 6),
-``tune_policy=True`` (item 7), ``use_mesh`` over more than one device
-(item 8). Until item 6 an exception from a launch propagates to the loop
-(which logs "scheduling batch failed" and requeues the batch; on the
-serial path nothing was assumed before the launch either), a failed
-readback requeues its batches without a retry, and a wave batch that
-trips the kernel-output guards is counted in ``kernel_guard_trips_total``
-and requeued for the device. A serial batch that trips them is counted
-and quarantined to the host path, as in the reference (nothing of it was
-assumed). Neither latches the device off: the reference's
-``device_loss_disable_after`` latch (``_set_device_down``) is item 6, and
-the setting is read nowhere (its validation asks for a value of at least
-1, so it has no "off" to refuse). The policy gym's wave recorder waits for
-item 7. The preemption what-if mask is ``ops/lattice.preempt_whatif`` on
-torch.
+ROADMAP queue 1 item): ``tune_policy=True`` and the policy gym's wave
+recorder (item 7), ``use_mesh`` over more than one device (item 8). The
+preemption what-if mask is ``ops/lattice.preempt_whatif`` on torch.
 
 The reference's design notes follow.
 
@@ -104,7 +118,17 @@ from ..ops.batch import encode_pod_batch
 from ..ops.encoding import PodBatch, SnapshotEncoder
 from ..ops.preemptlattice import preempt_select, validate_preempt_outputs
 from ..ops.templates import TemplateCache, build_pair_table
-from ..ops.wavelattice import DEFAULT_RTC_SHAPE, make_wave_kernel
+from ..ops import hostcallback
+from ..ops.wavelattice import (
+    DEFAULT_RTC_SHAPE,
+    make_wave_kernel,
+    make_wave_kernel_cb,
+)
+from ..parallel.sharded import (
+    call_with_device_retry,
+    device_retry_delay,
+    is_device_loss_error,
+)
 from ..ops.lattice import (
     GUARD_TRAILING_LOSS,
     KernelGuardTrip,
@@ -129,6 +153,7 @@ from ..ops.lattice import (
 from ..utils.metrics import metrics
 from ..utils.trace import Trace
 from ..utils.tracing import tracer
+from .antientropy import SnapshotAntiEntropy
 from .cache.cache import SchedulerCache
 from .config import KubeSchedulerConfiguration
 from .core import FitError, GenericScheduler
@@ -147,7 +172,7 @@ from .ha import (
     GAUGE_ROLE,
     GAUGE_STANDBY_SNAPSHOT_AGE,
 )
-from .wavepath import HostCopy, batch_waves, wave_bucket
+from .wavepath import HostCallbackDelivery, HostCopy, batch_waves, wave_bucket
 from . import eventhandlers
 
 logger = logging.getLogger("kubernetes_tpu_torch.scheduler")
@@ -167,6 +192,13 @@ COUNTER_WAVE_BLOCKING_READBACKS = "scheduler_wave_readbacks_blocking_total"
 COUNTER_WAVE_TRAILING_READBACKS = "scheduler_wave_trailing_readbacks_total"
 COUNTER_WAVE_TRAILING_UNWOUND = "scheduler_wave_trailing_unwound_assumes_total"
 GAUGE_WAVE_TRAILING_BACKLOG = "scheduler_wave_trailing_backlog"
+# host_callback_binds: fast payloads consumed from a host-callback delivery
+# (zero device syncs on the bind-critical path)
+COUNTER_WAVE_HOSTCB = "scheduler_wave_hostcb_deliveries_total"
+# snapshot auditor passes that skipped, by the report's reason ("pipeline
+# busy", "no device snapshot", "no live rows"); the copied auditor counts
+# only its completed passes
+COUNTER_AUDIT_SKIPS = "snapshot_audit_skips_total"
 
 
 @contextmanager
@@ -201,12 +233,12 @@ class _InFlightBatch:
     __slots__ = (
         "pis", "eb", "row_names", "res", "moves0", "trace", "t_start",
         "snapshot", "launch_gen", "wave_tid", "t_launched", "copies",
-        "trailing",
+        "ticket", "trailing",
     )
 
     def __init__(
         self, pis, eb, row_names, res, moves0, trace, t_start, snapshot=None,
-        launch_gen=0, wave_tid="", t_launched=0.0, copies=None,
+        launch_gen=0, wave_tid="", t_launched=0.0, copies=None, ticket=None,
     ):
         self.pis = pis
         self.eb = eb
@@ -234,10 +266,49 @@ class _InFlightBatch:
         # split-phase readback: (fast index HostCopy, trailing score
         # HostCopy) started at dispatch; None in combined mode
         self.copies = copies
+        # host_callback_binds: the delivery-registry ticket the launch's
+        # fast payload is delivered under (None on the plain path)
+        self.ticket = ticket
         # split-phase readback: the _TrailingReadback registered at fast
         # commit (None when nothing was placed, or in combined mode) —
         # whoever consumes it finishes the wave trace
         self.trailing = None
+
+
+class _CountedAntiEntropy(SnapshotAntiEntropy):
+    """The snapshot auditor, also counting its skipped passes by reason
+    (``snapshot_audit_skips_total{reason}``), so a run can tell an
+    auditor that found nothing from one that never looked."""
+
+    def audit_once(self):
+        report = super().audit_once()
+        if report["skipped"]:
+            metrics.inc(COUNTER_AUDIT_SKIPS, {"reason": report["skipped"]})
+        return report
+
+
+class _TicketedWaveKernel:
+    """The host-callback wave kernel bound to one launch's ticket (the
+    reference closes over the cb kernel and the ticket the same way):
+    called like the plain kernel, it hands ``post`` the fast payload and
+    keeps the HostCopy ``post`` started, which the launch takes as its
+    split-phase fast copy."""
+
+    __slots__ = ("kern", "ticket", "post", "fast")
+
+    def __init__(self, kern, ticket: int, post):
+        self.kern = kern
+        self.ticket = ticket
+        self.post = post
+        self.fast = None
+
+    def with_noise(self, snap, tb, pt, weights, noise):
+        return self.kern.with_noise(
+            snap, tb, pt, weights, noise, self.ticket, self._post
+        )
+
+    def _post(self, ticket, *tensors):
+        self.fast = self.post(ticket, *tensors)
 
 
 class _TrailingReadback:
@@ -329,10 +400,6 @@ class _FencedBindSurface:
 def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
     """(setting, ROADMAP queue 1 item) pairs this port does not run yet."""
     out = []
-    if cfg.host_callback_binds:
-        out.append(("host_callback_binds=True", 5))
-    if cfg.antientropy_period_s > 0:
-        out.append(("antientropy_period_s > 0 (the snapshot auditor)", 6))
     if cfg.tune_policy:
         out.append(("tune_policy=True (the policy gym)", 7))
     if cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
@@ -526,6 +593,21 @@ class Scheduler:
         self._ridethrough = BindRideThrough(
             capacity=self.cfg.pending_bind_capacity
         )
+        # data-plane self-defense state: the anti-entropy auditor
+        # (started in start()), the device-down latch (host-path fallback
+        # after unrecoverable device loss), and the consecutive-failure
+        # counters that decide when retrying stops being worth it
+        self._auditor = None
+        self._device_down = False
+        self._consecutive_device_loss = 0
+        self._consecutive_guard_trips = 0
+        # host_callback_binds: the waiter thread that delivers each
+        # launch's fast payload to the ticket registry
+        self._hostcb = (
+            HostCallbackDelivery(self._copy_stream)
+            if self.cfg.host_callback_binds
+            else None
+        )
         self._weights = self._build_weights()
         self._score_policy_name = (
             self.cfg.score_policy
@@ -684,10 +766,9 @@ class Scheduler:
     def promote(self, fence=None) -> None:
         """Leadership start: arm the bind fence, adopt whatever the
         previous leader left mid-flight, then start the scheduling loops
-        (queue flushers, janitor, the batch loop). Called by start()
-        directly in the non-HA path (fence None, no standby) and by the
-        election winner after start_standby(). The anti-entropy auditor is
-        ROADMAP queue 1 item 6."""
+        (auditor, queue flushers, janitor, the batch loop). Called by
+        start() directly in the non-HA path (fence None, no standby) and
+        by the election winner after start_standby()."""
         was_standby = self._standby_thread is not None
         self._stop_standby_loop()
         self._bind_fence = fence
@@ -711,6 +792,30 @@ class Scheduler:
         # pick up the gym's promoted vector instead of reverting to the
         # config default — degraded/absent store is a counted skip
         self._adopt_persisted_score_policy()
+        if self.cfg.use_device and self.cfg.antientropy_period_s > 0:
+            # quiescence gate — a SEMANTIC gate only, since the
+            # generational snapshot made the mechanics safe (the audit's
+            # gather pins a generation no launch can donate): an in-flight
+            # wave batch legitimately holds device commits the masters
+            # haven't replayed yet, and a master-vs-device diff would
+            # "repair" the kernel's own work away. _busy is set under the
+            # queue lock BEFORE the first pod leaves the queue and cleared
+            # only after the batch fully resolves, so a lock-held re-check
+            # of these flags is race-free against the launch path (which
+            # takes the cache lock after _busy is set).
+            self._auditor = _CountedAntiEntropy(
+                self.cache.encoder,
+                lock=self.cache.lock,
+                quiesced=lambda: (
+                    not self._pending
+                    and not self._busy
+                    and not self._device_down
+                ),
+                period_s=self.cfg.antientropy_period_s,
+                sample_rows=self.cfg.antientropy_sample_rows,
+                rebuild_after=self.cfg.antientropy_rebuild_after,
+            )
+            self._auditor.start()
         self.queue.run()
         self.cache.start_janitor()
         self._sched_thread = threading.Thread(
@@ -761,18 +866,21 @@ class Scheduler:
         """Keep the standby's device snapshot tracking the informer
         stream: scatter pending encoder deltas every tick so the dirty-row
         backlog at promotion is bounded by one period, and publish the
-        snapshot's freshness age for the SIGUSR2 dump. (The reference
-        stops advancing the age while its device-down latch is set; that
-        latch is ROADMAP queue 1 item 6.)"""
+        snapshot's freshness age for the SIGUSR2 dump."""
         while not self._standby_stop.wait(period_s):
             try:
-                if self.cfg.use_device:
+                if self.cfg.use_device and not self._device_down:
                     if self.cache.encoder.has_pending_updates:
                         self.cache.device_snapshot()  # flush under the lock
                         metrics.inc(COUNTER_STANDBY_FLUSHES)
-                # host-only scheduling: the cache IS the state, there is
-                # no device snapshot to go stale
-                self._standby_last_fresh = time.monotonic()
+                    self._standby_last_fresh = time.monotonic()
+                elif not self.cfg.use_device:
+                    # host-only scheduling: the cache IS the state, there
+                    # is no device snapshot to go stale
+                    self._standby_last_fresh = time.monotonic()
+                # _device_down: deliberately do NOT advance — the snapshot
+                # really is going stale, and this gauge exists precisely
+                # to make a cold standby visible before a promotion
             except Exception:
                 logger.exception("standby snapshot refresh failed")
             if self._standby_last_fresh is not None:
@@ -957,6 +1065,12 @@ class Scheduler:
     def stop(self) -> None:
         self._stop.set()
         self._stop_standby_loop()
+        if self._auditor is not None:
+            self._auditor.stop()
+            # no audit pass may run on after stop() returns
+            t = self._auditor._thread
+            if t is not None:
+                t.join(timeout=10.0)
         self.queue.close()
         self.cache.stop()
         self.informer_factory.stop()
@@ -969,6 +1083,8 @@ class Scheduler:
         # them (the loop is dead, so nobody else will release them)
         if self._trailing:
             self._drain_trailing(block=True)
+        if self._hostcb is not None:
+            self._hostcb.close()
         # release parked permit-waiters or the drain below would block on
         # their (up to 30s) wait timeouts
         for p in self.profiles.values():
@@ -1446,7 +1562,9 @@ class Scheduler:
             self._schedule_one_host(pi, moves0)
         if not known:
             return
-        use_device = self.cfg.use_device
+        # the device-down latch (unrecoverable device loss) degrades every
+        # batch to the host path — correctness over throughput
+        use_device = self.cfg.use_device and not self._device_down
         if (
             0 < len(known) <= self.cfg.small_batch_host_max
             and self.cache.node_count <= self.cfg.small_batch_host_node_max
@@ -1492,34 +1610,79 @@ class Scheduler:
         self, pis: List[QueuedPodInfo], moves0: int, trace: Trace, t_start: float
     ) -> None:
         """The serial device path (use_wave=False): encode the batch per
-        pod, run the serial lattice, read it back, then assume and bind.
-        The reference wraps the launch in a device-loss ride-through
-        (bounded retries, then the host path and the device-down latch);
-        that is ROADMAP queue 1 item 6. Here a launch or readback error
-        propagates to the loop, which logs and requeues the batch — nothing
-        was assumed before the readback."""
-        with self.cache.lock, _stage_timer("encode"):
-            eb = encode_pod_batch(
-                self.cache.encoder,
-                [pi.pod for pi in pis],
-                pad_to=self._pad(len(pis)),
+        pod, run the serial lattice, read it back, then assume and bind."""
+        # device-loss ride-through, serial-path edition (launch+readback
+        # are one synchronous call here): bounded jittered retries, then
+        # the _handle_device_loss ladder (transient re-upload / latch
+        # off) and the host path for this batch — nothing is assumed
+        # before the readback succeeds, so quarantining loses zero pods.
+        # Each attempt re-encodes AND re-flushes under the lock: informer
+        # churn during the retry sleep can remap encoder rows, and a stale
+        # eb/row_names would decode the kernel's row choices against the
+        # wrong nodes (same reason the wave wrapper re-encodes per retry).
+        attempts = 0
+        while True:
+            with self.cache.lock, _stage_timer("encode"):
+                eb = encode_pod_batch(
+                    self.cache.encoder,
+                    [pi.pod for pi in pis],
+                    pad_to=self._pad(len(pis)),
+                )
+                snap = self.cache.encoder.flush()
+                enc_cfg = self.cache.encoder.cfg
+                row_names = list(self.cache.encoder.row_names)
+                launch_gen = self.cache._ext_generation
+            trace.step("encoded+flushed")
+            kern = make_schedule_batch(
+                enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
             )
-            snap = self.cache.encoder.flush()
-            enc_cfg = self.cache.encoder.cfg
-            row_names = list(self.cache.encoder.row_names)
-            launch_gen = self.cache._ext_generation
-        trace.step("encoded+flushed")
-        kern = make_schedule_batch(
-            enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
-        )
-        noise = self._serial_noise(
-            int(eb.batch.valid.shape[0]), int(snap.valid.shape[0])
-        )
-        w_launch = np.asarray(self._weights)
-        with _stage_timer("kernel"):
-            res, chosen, score, bulk = self._run_serial_kernel(
-                kern, snap, eb.batch, noise, w_launch
+            noise = self._serial_noise(
+                int(eb.batch.valid.shape[0]), int(snap.valid.shape[0])
             )
+            w_launch = np.asarray(self._weights)
+            try:
+                with _stage_timer("kernel"):
+                    res, chosen, score, bulk = self._run_serial_kernel(
+                        kern, snap, eb.batch, noise, w_launch
+                    )
+                self._consecutive_device_loss = 0
+                break
+            except Exception as e:  # noqa: BLE001 — classifier filters
+                if not is_device_loss_error(e):
+                    raise
+                with self.cache.lock:
+                    self.cache.encoder.invalidate_device()
+                # same metric semantics as launch/readback: recovered
+                # blips count as retries, loss_total only on terminal
+                if attempts < self.cfg.device_retry_attempts:
+                    attempts += 1
+                    metrics.inc(
+                        "scheduler_device_retries_total",
+                        {"stage": "serial"},
+                    )
+                    delay = device_retry_delay(attempts)
+                    logger.warning(
+                        "device loss on serial batch kernel (%s); retry "
+                        "%d/%d in %.0f ms with a fresh encode + snapshot "
+                        "upload",
+                        e, attempts, self.cfg.device_retry_attempts,
+                        delay * 1e3,
+                    )
+                    time.sleep(delay)
+                    continue
+                metrics.inc(
+                    "scheduler_device_loss_total", {"stage": "serial"}
+                )
+                logger.error(
+                    "device loss on serial batch kernel persists after "
+                    "%d retries (%s): batch of %d pods degrades to the "
+                    "host path", attempts, e, len(pis),
+                )
+                self._handle_device_loss(e)
+                self._snapshot = self.cache.update_snapshot()
+                for pi in pis:
+                    self._schedule_one_host(pi, moves0)
+                return
         trace.step("kernel")
         algo_dur = time.monotonic() - t_start
         if self.cfg.kernel_output_guards:
@@ -1533,9 +1696,7 @@ class Scheduler:
             )
             if reason:
                 # serial path (no pipeline): quarantine this batch to the
-                # host path and rebuild the snapshot — nothing assumed yet.
-                # (The reference also latches the device off after
-                # repeated trips: ROADMAP queue 1 item 6.)
+                # host path and rebuild the snapshot — nothing assumed yet
                 metrics.inc("kernel_guard_trips_total", {"reason": reason})
                 logger.error(
                     "kernel output guard tripped (%s) on the serial device "
@@ -1544,10 +1705,24 @@ class Scheduler:
                 )
                 with self.cache.lock:
                     self.cache.encoder.invalidate_device()
+                # a persistently poisoned device must latch OFF here too,
+                # not loop launch → trip → full re-upload per batch forever
+                self._consecutive_guard_trips += 1
+                if (
+                    self._consecutive_guard_trips
+                    >= self.cfg.device_loss_disable_after
+                ):
+                    logger.error(
+                        "%d consecutive kernel guard trips: abandoning the "
+                        "device path for the host path",
+                        self._consecutive_guard_trips,
+                    )
+                    self._set_device_down()
                 self._snapshot = self.cache.update_snapshot()
                 for pi in pis:
                     self._schedule_one_host(pi, moves0)
                 return
+            self._consecutive_guard_trips = 0
 
         fallback_pis: List[QueuedPodInfo] = []
         failed: List = []  # (pi, batch_index or -1)
@@ -1701,12 +1876,54 @@ class Scheduler:
     def _schedule_batch_wave(
         self, pis: List[QueuedPodInfo], moves0: int, trace: Trace, t_start: float
     ) -> None:
-        """The reference wraps the launch in a device-loss ride-through
-        (bounded jittered retries, then the mesh-shrink / host-path
-        ladder); that is ROADMAP queue 1 item 6. Here a launch error
-        propagates: the scheduling loop logs "scheduling batch failed" and
-        requeues the batch (nothing was assumed before the launch)."""
-        self._schedule_batch_wave_once(pis, moves0, trace, t_start)
+        """Device-loss ride-through wrapper around the wave launch:
+        a launch that dies with a device-loss error gets bounded jittered
+        retries — each retry re-encodes and re-flushes from the host
+        masters (the failed launch may have consumed the donated snapshot,
+        and node rows can move between attempts) — then falls through to
+        _handle_device_loss (a probe of the card, or the host path).
+        Nothing is assumed before a launch succeeds, so the requeue on
+        give-up loses zero pods."""
+        attempts = 0
+        while True:
+            try:
+                self._schedule_batch_wave_once(pis, moves0, trace, t_start)
+                self._consecutive_device_loss = 0
+                return
+            except Exception as e:  # noqa: BLE001 — classifier filters
+                if not is_device_loss_error(e):
+                    raise
+                with self.cache.lock:
+                    self.cache.encoder.invalidate_device()
+                # metric semantics match the readback wrapper: a blip a
+                # retry recovers from counts as a RETRY; loss_total is
+                # reserved for terminal (ladder-escalating) losses
+                if attempts < self.cfg.device_retry_attempts:
+                    attempts += 1
+                    metrics.inc(
+                        "scheduler_device_retries_total",
+                        {"stage": "launch"},
+                    )
+                    delay = device_retry_delay(attempts)
+                    logger.warning(
+                        "device loss on wave launch (%s); retry %d/%d "
+                        "in %.0f ms with a fresh snapshot upload",
+                        e, attempts, self.cfg.device_retry_attempts,
+                        delay * 1e3,
+                    )
+                    time.sleep(delay)
+                    continue
+                metrics.inc(
+                    "scheduler_device_loss_total", {"stage": "launch"}
+                )
+                logger.error(
+                    "wave launch failed with device loss after %d retries: %s",
+                    attempts, e,
+                )
+                self._handle_device_loss(e)
+                for pi in pis:
+                    self.queue.requeue_backoff(pi)
+                return
 
     def _launch_wave_kernel(self, kern, snap, batch, ptab, weights, noise):
         """Seam for fault injection: every wave launch goes through here.
@@ -1730,7 +1947,9 @@ class Scheduler:
             new_snap, res = kern.with_noise(dl.snap, batch, ptab, weights, noise)
             copies = None
             if self._split_phase:
-                fast = HostCopy(
+                # a host-callback launch already started the fast copy
+                # (and handed it to the delivery thread)
+                fast = getattr(kern, "fast", None) or HostCopy(
                     (res.chosen, res.placed, res.deferred), self._copy_stream
                 )
                 bulk = HostCopy((res.score,), self._copy_stream)
@@ -1756,15 +1975,29 @@ class Scheduler:
         """Seam for fault injection: the split-phase FAST readback — just
         the index payload (chosen, placed, deferred) per batch. The async
         copy started at dispatch means this usually consumes an
-        already-landed transfer. A fetch that finds a copy not yet landed
-        (its event's query() still False: the resolve overtook the kernel)
-        is a real host-blocking device sync and counts separately: it is
-        the readbacks_per_bind numerator."""
+        already-landed transfer; a host-callback ticket beats even that
+        (the delivery thread already landed the payload in the registry).
+        A fetch that finds a copy not yet landed (its event's query()
+        still False: the resolve overtook the kernel) is a real
+        host-blocking device sync and counts separately: it is the
+        readbacks_per_bind numerator."""
         metrics.inc(COUNTER_WAVE_FAST_READBACKS)
-        if not all(b.copies[0].ready() for b in batches):
-            metrics.inc(COUNTER_WAVE_BLOCKING_READBACKS)
-            metrics.inc("scheduler_wave_readbacks_total")
-        return [b.copies[0].arrays() for b in batches]
+        out: List = []
+        for b in batches:
+            payload = None
+            if b.ticket is not None:
+                payload = hostcallback.take(b.ticket, timeout=2.0)
+                if payload is not None:
+                    metrics.inc(COUNTER_WAVE_HOSTCB)
+            out.append(payload)
+        missing = [i for i, p in enumerate(out) if p is None]
+        if missing:
+            if not all(batches[i].copies[0].ready() for i in missing):
+                metrics.inc(COUNTER_WAVE_BLOCKING_READBACKS)
+                metrics.inc("scheduler_wave_readbacks_total")
+            for i in missing:
+                out[i] = batches[i].copies[0].arrays()
+        return out
 
     def _fetch_wave_bulk(self, entries: List["_TrailingReadback"]):
         """Seam for fault injection: the split-phase TRAILING readback —
@@ -1848,13 +2081,22 @@ class Scheduler:
             return
         t0 = time.monotonic()
         try:
-            # no retry: the reference's bounded device-retry wrapper is
-            # ROADMAP queue 1 item 6
             with _stage_timer("trailing"):
-                score = self._fetch_wave_bulk([entry])[0]
+                score = call_with_device_retry(
+                    lambda: self._fetch_wave_bulk([entry]),
+                    attempts=self.cfg.device_retry_attempts,
+                    on_retry=lambda n, e: metrics.inc(
+                        "scheduler_device_retries_total",
+                        {"stage": "trailing"},
+                    ),
+                )[0]
             metrics.inc(COUNTER_WAVE_TRAILING_READBACKS)
         except Exception as e:
             logger.exception("trailing bulk readback failed")
+            if is_device_loss_error(e):
+                metrics.inc(
+                    "scheduler_device_loss_total", {"stage": "trailing"}
+                )
             self._unwind_trailing(entry, GUARD_TRAILING_LOSS, str(e))
             return
         finally:
@@ -1865,6 +2107,7 @@ class Scheduler:
         if reason is not None:
             self._unwind_trailing(entry, reason)
             return
+        self._consecutive_guard_trips = 0
         t1 = time.monotonic()
         tracer.add_span(entry.wave_tid, "trailing", t0, t1)
         tracer.finish(entry.wave_tid, outcome="committed")
@@ -1922,6 +2165,17 @@ class Scheduler:
                     "kernel_guard_trips_total",
                     {"reason": "sibling_quarantine"},
                 )
+        self._consecutive_guard_trips += 1
+        if (
+            self._consecutive_guard_trips
+            >= self.cfg.device_loss_disable_after
+        ):
+            logger.error(
+                "%d consecutive kernel guard trips: abandoning the "
+                "device path for the host path",
+                self._consecutive_guard_trips,
+            )
+            self._set_device_down()
 
     def _schedule_batch_wave_once(
         self, pis: List[QueuedPodInfo], moves0: int, trace: Trace, t_start: float
@@ -1990,7 +2244,7 @@ class Scheduler:
         # pinnedness: the pinned-row plan runs only for batches that carry
         # pinned pods (pod_name_row_np is the host copy)
         has_pinned = bool((eb.pod_name_row_np >= 0).any())
-        kern = make_wave_kernel(
+        variant = (
             enc_cfg.v_cap,
             m_cand,
             n_waves,
@@ -2004,6 +2258,16 @@ class Scheduler:
             self._rtc_shape or DEFAULT_RTC_SHAPE,
             has_pinned,
         )
+        kern = make_wave_kernel(*variant)
+        ticket = None
+        if self.cfg.host_callback_binds:
+            # depth-infinity micro-waves: the launch posts its own fast
+            # index payload to the delivery thread under this ticket — the
+            # resolve consumes the delivery instead of issuing any sync
+            ticket = hostcallback.new_ticket()
+            kern = _TicketedWaveKernel(
+                make_wave_kernel_cb(*variant), ticket, self._hostcb.post
+            )
         p_pad = int(eb.pod_tpl_np.shape[0])
         noise = self._noise(p_pad, min(m_cand, enc_cfg.n_cap))
         w_launch = np.asarray(self._weights)
@@ -2013,6 +2277,8 @@ class Scheduler:
                 kern, snap, eb.batch, ptab, w_launch, noise
             )
         except Exception:
+            if ticket is not None:
+                hostcallback.discard(ticket)
             with self.cache.lock:
                 self.cache.encoder.invalidate_device()
             raise
@@ -2035,7 +2301,7 @@ class Scheduler:
         self._pending.append(
             _InFlightBatch(
                 pis, eb, row_names, res, moves0, trace, t_start, verify_snap,
-                launch_gen, wave_tid, t_launched, copies,
+                launch_gen, wave_tid, t_launched, copies, ticket,
             )
         )
         metrics.inc("scheduler_wave_batches_total")
@@ -2053,9 +2319,9 @@ class Scheduler:
             self._resolve_oldest(len(self._pending) - keep)
         elif self._split_phase and len(self._pending) > 1:
             # continuous micro-waves: any older wave whose fast index
-            # payload ALREADY landed (async copy started at dispatch)
-            # commits now instead of
-            # waiting for the pipeline to fill — its pods stop paying the
+            # payload ALREADY landed (async copy started at dispatch, or
+            # delivered under its host-callback ticket) commits now
+            # instead of waiting for the pipeline to fill — its pods stop paying the
             # pipeline-fill wait, and the device keeps computing the
             # newest wave while the host binds. Never the newest: its
             # device time is what overlaps this host work.
@@ -2068,6 +2334,8 @@ class Scheduler:
                 self._resolve_oldest(n_ready)
 
     def _fast_payload_ready(self, b: "_InFlightBatch") -> bool:
+        if b.ticket is not None and hostcallback.ready(b.ticket):
+            return True
         return b.copies is not None and b.copies[0].ready()
 
     def _resolve_pending(self) -> None:
@@ -2088,18 +2356,29 @@ class Scheduler:
         t_rb0 = time.monotonic()
         with _stage_timer("kernel"):
             try:
-                # Split mode fetches ONLY the index payload here; the bulk
-                # score trails through _fetch_wave_bulk off this path. (The
-                # reference's bounded device-retry wrapper and device-loss
-                # ladder are ROADMAP queue 1 item 6.)
+                # transient device blips get bounded jittered retries (the
+                # copies are re-readable — no donation on the read side)
+                # before the loss path takes over. Split mode fetches ONLY
+                # the index payload here; the bulk score trails through
+                # _fetch_wave_bulk off this path.
                 fetch = (
                     self._fetch_wave_index
                     if split
                     else self._fetch_wave_results
                 )
-                fetched = fetch(batches)
-            except Exception:
+                fetched = call_with_device_retry(
+                    lambda: fetch(batches),
+                    attempts=self.cfg.device_retry_attempts,
+                    on_retry=lambda n, e: metrics.inc(
+                        "scheduler_device_retries_total",
+                        {"stage": "readback"},
+                    ),
+                )
+                self._consecutive_device_loss = 0
+            except Exception as e:
                 for b in batches:
+                    if b.ticket is not None:
+                        hostcallback.discard(b.ticket)
                     tracer.finish(b.wave_tid, outcome="readback_failed")
                     for pi in b.pis:
                         tracer.event(pi.trace_id, "readback.failed")
@@ -2111,12 +2390,25 @@ class Scheduler:
                 logger.exception(
                     "wave pipeline readback failed (%d batches)", len(batches)
                 )
+                lost = is_device_loss_error(e)
+                if lost:
+                    metrics.inc(
+                        "scheduler_device_loss_total", {"stage": "readback"}
+                    )
+                    self._handle_device_loss(e)
                 moves = self.queue.moves_snapshot()
                 for b in batches:
                     for pi in b.pis:
                         if self.cache.has_pod(pi.pod.metadata.key):
                             continue
-                        self.queue.add_unschedulable_if_not_present(pi, moves)
+                        if lost:
+                            # infrastructure failure, not pod
+                            # unschedulability: backoff retries in 1-10 s
+                            # instead of sitting out unschedulableQ's
+                            # 30-60 s leftover flush
+                            self.queue.requeue_backoff(pi)
+                        else:
+                            self.queue.add_unschedulable_if_not_present(pi, moves)
                 return
         t_rb1 = time.monotonic()
         for b in batches:
@@ -2156,13 +2448,22 @@ class Scheduler:
                 tails.append(self._commit_batch(b, arrays, t_rb1))
                 if b.trailing is None:
                     # combined mode — or a split batch that placed
-                    # nothing: the guard story is complete right here
+                    # nothing: the guard story is complete right here.
+                    # With a trailing entry registered, the trip counter
+                    # resets only when the TRAILING validation passes
+                    # (else a poisoned device alternating commit/unwind
+                    # would never latch off).
+                    self._consecutive_guard_trips = 0
                     tracer.finish(b.wave_tid, outcome="committed")
             except KernelGuardTrip as trip:
                 quarantined = True
                 tracer.finish(b.wave_tid, outcome=f"guard_trip:{trip.reason}")
-                self._on_guard_trip(trip, b)
-                tails.append(None)
+                self._on_guard_trip(trip)
+                # the violating batch degrades to the host path (nothing
+                # was assumed for it): _finish_batch host-schedules every
+                # pod — at worst the wave runs at host speed, wrong
+                # placements are structurally impossible
+                tails.append((list(b.pis), []))
             except Exception:
                 logger.exception("committing wave batch failed")
                 tracer.finish(b.wave_tid, outcome="commit_failed")
@@ -2622,38 +2923,82 @@ class Scheduler:
                     )
         return None
 
-    def _on_guard_trip(
-        self, trip: KernelGuardTrip, batch: "_InFlightBatch"
-    ) -> None:
+    def _on_guard_trip(self, trip: KernelGuardTrip) -> None:
         """A batch's outputs failed validation: count it, force a device
         snapshot rebuild (its commits are suspect), and pull every NEWER
         in-flight batch out of the pipeline unread — their kernels
         chained on the same suspect snapshot. Their pods requeue
-        un-assumed (zero loss). The violating batch assumed nothing; its
-        pods go back through backoff to the device path. The reference
-        hands them to the host path and latches the device off after
-        repeated trips: that is the device-loss ladder (ROADMAP queue 1
-        item 6), so here a wrong kernel shows as trips and requeues,
-        never as pods quietly scheduled on the host."""
+        un-assumed (zero loss); repeated trips latch the device down."""
         metrics.inc("kernel_guard_trips_total", {"reason": trip.reason})
         logger.error(
-            "kernel output guard tripped (%s): batch requeued for the "
-            "device, snapshot rebuild forced", trip
+            "kernel output guard tripped (%s): batch quarantined to the "
+            "host path, snapshot rebuild forced", trip
         )
         with self.cache.lock:
             self.cache.encoder.invalidate_device()
-        for pi in batch.pis:
-            tracer.event(pi.trace_id, "wave.quarantined")
-            self.queue.requeue_backoff(pi)
         pending, self._pending = self._pending, []
         for b in pending:
             metrics.inc(
                 "kernel_guard_trips_total", {"reason": "sibling_quarantine"}
             )
+            if b.ticket is not None:
+                hostcallback.discard(b.ticket)
             tracer.finish(b.wave_tid, outcome="sibling_quarantine")
             for pi in b.pis:
                 tracer.event(pi.trace_id, "wave.quarantined")
                 self.queue.readd(pi)
+        self._consecutive_guard_trips += 1
+        if self._consecutive_guard_trips >= self.cfg.device_loss_disable_after:
+            logger.error(
+                "%d consecutive kernel guard trips: abandoning the device "
+                "path for the host path", self._consecutive_guard_trips,
+            )
+            self._set_device_down()
+
+    def _set_device_down(self) -> None:
+        self._device_down = True
+        metrics.set_gauge("scheduler_device_down", 1.0)
+
+    def _handle_device_loss(self, exc: BaseException) -> None:
+        """Unrecoverable-by-retry device loss. Escalation ladder on one
+        card: ride out a transient blip with just the forced re-upload
+        when the card still answers a probe, or — the probe fails, or
+        losses keep repeating — latch the device path off and serve from
+        the host path. (The reference's middle rung, shrinking a mesh to
+        its surviving devices, is ROADMAP queue 1 item 8.)"""
+        self._consecutive_device_loss += 1
+        metrics.set_gauge(
+            "scheduler_device_consecutive_loss",
+            float(self._consecutive_device_loss),
+        )
+        if self._consecutive_device_loss >= self.cfg.device_loss_disable_after:
+            logger.error(
+                "%d consecutive device-loss events without a successful "
+                "launch: abandoning the device path",
+                self._consecutive_device_loss,
+            )
+            self._set_device_down()
+            return
+        # single-device: probe it once — if even a trivial round-trip
+        # fails the device is gone
+        try:
+            if self._device_probe(self.device):
+                logger.warning(
+                    "device loss looks transient (probe ok): snapshot "
+                    "re-uploads on the next flush"
+                )
+                return
+        except Exception:
+            pass
+        self._set_device_down()
+
+    @staticmethod
+    def _device_probe(device) -> bool:
+        """One tiny put/get round-trip (injectable via monkeypatching for
+        chaos tests; device=None probes the current CUDA device)."""
+        from ..parallel.mesh import _default_probe
+
+        return _default_probe(device)
 
     # pad buckets for the (template, priority)-grouped preemption batch:
     # failed-group counts are small (distinct specs x priority tiers, not
@@ -2692,12 +3037,11 @@ class Scheduler:
         output guard discipline) — a trip, a kernel error, or the config
         gate returns None and the caller falls back to the host walk;
         nothing is ever evicted from this result without the per-node
-        host-oracle check in _attempt_preemption. (The reference also
-        skips the pass while its device-down latch is set: ROADMAP queue
-        1 item 6.)"""
+        host-oracle check in _attempt_preemption."""
         if (
             not self.cfg.vector_preemption
             or self.cfg.disable_preemption
+            or self._device_down
             or not self.cfg.use_device
         ):
             return None

@@ -17,6 +17,10 @@ Counterparts in ``kubernetes_tpu/scheduler/scheduler.py``:
 * ``HostCopy`` — the split-phase readback (``copy_to_host_async`` at
   :1846-1849, ``_device_ready`` at :119): a device->host copy started on a
   side CUDA stream into pinned host tensors, ready when its event is.
+* ``HostCallbackDelivery`` — the delivery side of ``host_callback_binds``
+  (the reference's ``io_callback`` into ``ops/hostcallback``, :2201-2223):
+  the fast index payload's ``HostCopy`` goes to one waiter thread, which
+  delivers it to the ticket registry once the copy's event has fired.
 * ``launch_wave_kernel`` — ``Scheduler._launch_wave_kernel`` (:1814): the
   launch inside the encoder's donation lease.
 * ``commit_batch`` — the encoder side of ``Scheduler._commit_batch``
@@ -40,6 +44,9 @@ blocking copy per batch.
 
 from __future__ import annotations
 
+import logging
+import queue
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
@@ -60,7 +67,10 @@ from ..ops.templates import (
     TemplateCache,
     build_pair_table,
 )
+from ..ops import hostcallback
 from ..ops.wavelattice import WaveKernel, WaveResult, make_wave_kernel
+
+logger = logging.getLogger("kubernetes_tpu_torch.scheduler.wavepath")
 
 
 @dataclass(frozen=True)
@@ -124,6 +134,70 @@ class HostCopy:
         if self._event is not None:
             self._event.synchronize()
         return [h.numpy() for h in self._host]
+
+
+class HostCallbackDelivery:
+    """The delivery side of ``host_callback_binds`` for one Scheduler.
+
+    ``post(ticket, *tensors)`` starts a ``HostCopy`` of the tensors on the
+    side stream and returns it (the launch keeps it as its split-phase
+    fast copy). On a CUDA device the copy goes to one daemon thread, which
+    waits on the copy's event and calls ``hostcallback.deliver(ticket,
+    ...)`` with numpy copies of the pinned buffers; the scheduling loop
+    never blocks on it. On the CPU the copy is synchronous and the
+    delivery happens inside ``post``. A ticket discarded before its
+    delivery is dropped by the registry.
+
+    Why not ``cudaLaunchHostFunc``: its host function may make no CUDA
+    call, and it would have to take the GIL on a CUDA callback thread
+    while the scheduling loop holds it to launch. The waiter thread needs
+    neither: ``Event.synchronize`` releases the GIL while it waits."""
+
+    def __init__(self, stream=None):
+        self._stream = stream
+        self._queue: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._thread: Optional[threading.Thread] = None
+        self._lock = threading.Lock()
+
+    def post(self, ticket: int, *tensors: torch.Tensor) -> HostCopy:
+        copy = HostCopy(tensors, self._stream)
+        if tensors[0].device.type != "cuda":
+            self._deliver(ticket, copy)
+            return copy
+        with self._lock:
+            if self._thread is None:
+                self._thread = threading.Thread(
+                    target=self._run, daemon=True, name="hostcb-delivery"
+                )
+                self._thread.start()
+        self._queue.put((ticket, copy))
+        return copy
+
+    def _run(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            self._deliver(*item)
+
+    def _deliver(self, ticket: int, copy: HostCopy) -> None:
+        try:
+            arrays = copy.arrays()
+        except Exception:
+            # the consumer's take() times out and reads the same copy
+            # itself, where the error surfaces on the scheduling loop
+            logger.exception("host-callback delivery of ticket %d failed", ticket)
+            return
+        hostcallback.deliver(ticket, *(np.array(a) for a in arrays))
+
+    def close(self, timeout: float = 5.0) -> None:
+        """Stop the waiter thread once the copies posted so far are
+        delivered."""
+        with self._lock:
+            thread, self._thread = self._thread, None
+        if thread is not None:
+            self._queue.put(None)
+            thread.join(timeout)
 
 
 @dataclass

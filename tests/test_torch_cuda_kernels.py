@@ -309,3 +309,138 @@ def test_preempt_select_on_the_card_matches_its_cpu_run():
         g = getattr(got, f)
         assert g.is_cuda and torch.equal(g.cpu(), getattr(want, f)), f
     assert len(set(want.node.tolist()) - {-1}) >= 2
+
+
+# -- the data-plane defense on the card ------------------------------------
+
+
+@pytest.mark.cuda
+def test_device_probe_answers_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kubernetes_tpu_torch.parallel.mesh import _default_probe
+    from kubernetes_tpu_torch.scheduler import Scheduler
+
+    assert _default_probe(torch.device("cuda", 0))
+    assert _default_probe(None)
+    assert Scheduler._device_probe(torch.device("cuda", 0))
+
+
+def _cudart():
+    """The CUDA runtime library the card's toolkit ships, for its own
+    error strings."""
+    import ctypes
+    import ctypes.util
+    import glob
+
+    names = [ctypes.util.find_library("cudart")] + sorted(
+        glob.glob("/usr/local/cuda/lib64/libcudart.so*")
+    )
+    for name in names:
+        if name:
+            try:
+                return ctypes.CDLL(name)
+            except OSError:
+                continue
+    raise AssertionError("libcudart not found")
+
+
+@pytest.mark.cuda
+def test_device_loss_markers_are_the_cuda_runtime_strings():
+    """Each CUDA marker of parallel/sharded.py is the runtime's own
+    cudaGetErrorString text or enum name of a device-gone error, and the
+    runtime's texts of program faults are not classified as device loss."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import ctypes
+
+    from kubernetes_tpu_torch.parallel.sharded import (
+        _DEVICE_LOSS_MARKERS,
+        is_device_loss_error,
+    )
+
+    rt = _cudart()
+    rt.cudaGetErrorString.restype = ctypes.c_char_p
+    rt.cudaGetErrorName.restype = ctypes.c_char_p
+
+    def text(code):
+        return rt.cudaGetErrorString(code).decode(), rt.cudaGetErrorName(code).decode()
+
+    # cudaErrorNoDevice, cudaErrorDevicesUnavailable,
+    # cudaErrorECCUncorrectable, cudaErrorLaunchTimeout
+    for code in (100, 46, 214, 702):
+        msg, name = text(code)
+        assert any(m in msg.lower() for m in _DEVICE_LOSS_MARKERS), (code, msg)
+        assert name.lower() in _DEVICE_LOSS_MARKERS, (code, name)
+        assert is_device_loss_error(RuntimeError(f"CUDA error: {msg}"))
+    # illegal address, device-side assert, invalid configuration, out of
+    # memory, misaligned address, illegal instruction, launch failure
+    for code in (700, 710, 9, 2, 716, 715, 719):
+        msg, name = text(code)
+        assert not is_device_loss_error(RuntimeError(f"CUDA error: {msg}")), (code, msg)
+        assert not is_device_loss_error(RuntimeError(name)), (code, name)
+
+
+def _audit_cluster(device):
+    from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
+    from kubernetes_tpu_torch.perf.workloads import WorkloadConfig, build_workload
+
+    nodes, init, _ = build_workload(
+        WorkloadConfig("SchedulingPodAffinity", 500, 400, 1)
+    )
+    enc = SnapshotEncoder(EncodingConfig.for_cluster(500), device=device)
+    for n in nodes:
+        enc.add_node(n)
+    for i, p in enumerate(init):
+        enc.add_pod(f"node-{(7 * i) % 500}", p)
+    enc.flush()
+    return enc
+
+
+@pytest.mark.cuda
+def test_corrupt_audit_repair_on_the_card_matches_the_cpu():
+    """The same corruption of two fields on a 500-node snapshot on the card
+    and on the CPU: one audit pass gives the same report on both (exactly
+    the corrupted rows, no master repair, no rebuild), and afterwards every
+    row-major field on the card equals the host masters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kubernetes_tpu_torch.scheduler.antientropy import SnapshotAntiEntropy
+    from kubernetes_tpu_torch.testing.device_faults import corrupt_device_rows
+
+    reports = []
+    for device in (torch.device("cuda", 0), torch.device("cpu")):
+        enc = _audit_cluster(device)
+        rows = [3, 17, 40, 41]
+        corrupt_device_rows(enc, rows, field="requested")
+        corrupt_device_rows(enc, rows[:2], field="valid")
+        corrupt_device_rows(enc, [5], field="eterm_w", mutate=lambda a: a + 0.5)
+        rep = SnapshotAntiEntropy(enc, sample_rows=64).audit_once()
+        reports.append((
+            rep["rows_audited"], rep["device_drift"], rep["master_repaired"],
+            rep["rebuilt"],
+        ))
+        for field in enc.ROW_FIELDS:
+            np.testing.assert_array_equal(
+                getattr(enc._device, field).cpu().numpy(), enc._master_of(field),
+                err_msg=field,
+            )
+    assert reports[0] == reports[1]
+    assert reports[0][1] == {
+        "requested": [3, 17, 40, 41], "valid": [3, 17], "eterm_w": [5],
+    }
+    assert not reports[0][2] and not reports[0][3]
+
+
+@pytest.mark.cuda
+def test_fetch_device_rows_on_the_card_matches_the_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    card = _audit_cluster(torch.device("cuda", 0))
+    cpu = _audit_cluster(torch.device("cpu"))
+    rows = list(range(0, 500, 7))
+    a, b = card.fetch_device_rows(rows), cpu.fetch_device_rows(rows)
+    assert list(a) == list(b)
+    for field in a:
+        assert a[field].dtype == b[field].dtype
+        np.testing.assert_array_equal(a[field], b[field], err_msg=field)

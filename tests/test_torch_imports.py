@@ -19,6 +19,10 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import kubernetes_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+# the data-plane defense slice's modules are among them
+for new in ("parallel.sharded", "parallel.mesh", "ops.hostcallback",
+            "scheduler.antientropy", "testing.device_faults"):
+    assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401  (its top level only; main() needs a card)
@@ -46,10 +50,12 @@ def _run(code: str, **env):
 def test_port_imports_neither_jax_nor_the_reference_package():
     proc = _run(_PROBE)
     assert proc.returncode == 0, proc.stderr
-    # every module walked: the wave-path slice's 24 and the Scheduler
+    # every module walked: the wave-path slice's 24, the Scheduler
     # slice's copies and ports (API server, client, runtime, queue,
     # framework and plugins, cache, scheduler, harness, tuner surface)
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 75
+    # and the data-plane defense slice's (parallel, the host-callback
+    # registry, the auditor, the fault injector)
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 82
 
 
 def test_chip_smoke_names_no_reference_module():

@@ -183,6 +183,13 @@ def _parity_servers(name):
 @pytest.mark.parametrize("batch,m_cand", [(16, 16), (512, 64)])
 @pytest.mark.parametrize("name", list(WORKLOADS))
 def test_scheduler_matches_reference_batch_by_batch(name, batch, m_cand, monkeypatch):
+    batch_parity(name, batch, m_cand, monkeypatch)
+
+
+def batch_parity(name, batch, m_cand, monkeypatch, **settings):
+    """The body of (a) for one workload and bucket configuration, both
+    Schedulers also given `settings`; returns the two (stopped)
+    Schedulers."""
     metrics.reset()
     (ref_server, ref_pods), (server, pods), n_init = _parity_servers(name)
     common = dict(
@@ -190,6 +197,7 @@ def test_scheduler_matches_reference_batch_by_batch(name, batch, m_cand, monkeyp
         vector_preemption=False, antientropy_period_s=0, use_mesh=False,
         device_batch_window=0.0,
     )
+    common.update(settings)
     ref_variants = []
     real_jit = ref_sched_mod.make_wave_kernel_jit
 
@@ -286,6 +294,7 @@ def test_scheduler_matches_reference_batch_by_batch(name, batch, m_cand, monkeyp
     finally:
         ref.stop()
         port.stop()
+    return ref, port
 
 
 # -- (b) the reference's threaded tests on the port --------------------------
@@ -729,33 +738,98 @@ def _trip_first_commit(monkeypatch):
 
 
 def test_guard_trip_requeues_the_batch_for_the_device(monkeypatch):
-    """A batch whose kernel output fails the guards is counted and its pods
-    go back through the queue to the device path: none of them is handed to
-    the host filter chain, and the device is not switched off."""
-    metrics.reset()
-    calls = _trip_first_commit(monkeypatch)
-    host = []
-    monkeypatch.setattr(
-        port_sched_mod.Scheduler, "_schedule_one_host",
-        lambda self, pi, moves: host.append(pi.pod.metadata.name),
-    )
-    server = APIServer()
-    sched = Scheduler(
-        server, _cfg(use_device=True, small_batch_host_max=0), device="cpu"
-    )
-    sched.start()
-    try:
-        for i in range(4):
-            server.create("nodes", make_node(f"n{i}"))
-        names = [f"p{i}" for i in range(12)]
-        for n in names:
-            server.create("pods", make_pod(n))
-        wait_scheduled(server, names, timeout=60)
-        assert host == []
-        assert calls["n"] >= 2
-        assert _counter_sum("kernel_guard_trips_total") >= 1
-    finally:
-        sched.stop()
+    """The reference's answer to a kernel-output guard trip, held against
+    the reference (the name predates it: until the data-plane defense was
+    ported, a tripped batch was requeued for the device). Both Schedulers
+    are driven batch by batch at 64 nodes with the reference's tie noise,
+    their first `k` commits made to trip the guards. k = 1: the tripped
+    batch goes to the host path, the newer in-flight batch is pulled with
+    `sibling_quarantine`, the device stays up. k = device_loss_disable_after
+    (3): the consecutive trips latch the device down and every later batch
+    takes the host path. Both sides host-schedule the same pods and bind
+    every pod to the same node, with the same trips by reason."""
+    from test_torch_device_defense import _drive_pair, _series
+
+    from kubernetes_tpu.ops.lattice import KernelGuardTrip as RefTrip
+    from kubernetes_tpu.utils.metrics import metrics as ref_metrics
+
+    for k in (1, 3):
+        metrics.reset()
+        ref_metrics.reset()
+        (ref_server, ref_pods), (server, pods), n_init = _parity_servers(
+            "SchedulingPodAffinity"
+        )
+        common = dict(
+            device_batch_size=16, wave_m_cand=16, pipeline_depth=2,
+            antientropy_period_s=0, use_mesh=False, device_batch_window=0.0,
+            pod_initial_backoff_seconds=0.05, pod_max_backoff_seconds=0.1,
+        )
+        ref = ref_sched_mod.Scheduler(ref_server, RefConfig(**common))
+        keys = collections.deque()
+        port = Scheduler(
+            server, KubeSchedulerConfiguration(**common), device="cpu",
+            noise=lambda p, m_c: torch.tensor(np.asarray(
+                jax.random.uniform(keys.popleft(), (p, m_c), maxval=0.999)
+            )),
+        )
+        host = {"ref": [], "port": []}
+        for side, s, trip in (("ref", ref, RefTrip), ("port", port, KernelGuardTrip)):
+            calls = {"n": 0}
+            commit, one_host = s._commit_batch, s._schedule_one_host
+
+            def tripping_commit(*a, _c=calls, _commit=commit, _trip=trip, **kw):
+                _c["n"] += 1
+                if _c["n"] <= k:
+                    raise _trip(GUARD_ROW_RANGE, "injected")
+                return _commit(*a, **kw)
+
+            def recording_host(pi, moves, _side=side, _one=one_host):
+                host[_side].append(pi.pod.metadata.name)
+                return _one(pi, moves)
+
+            s._commit_batch = tripping_commit
+            s._schedule_one_host = recording_host
+        launch = ref._launch_wave_kernel
+
+        def launch_rec(kern, snap, batch, ptab, weights, key):
+            keys.append(key)
+            return launch(kern, snap, batch, ptab, weights, key)
+
+        ref._launch_wave_kernel = launch_rec
+        try:
+            for s in (ref, port):
+                s._bringup()
+            for s, srv, ps in ((ref, ref_server, ref_pods), (port, server, pods)):
+                for p in ps:
+                    srv.create("pods", p)
+                _wait(
+                    lambda s=s, ps=ps: len(s.queue) == len(ps)
+                    and s.cache.pod_count() == n_init,
+                    30, "the informers to queue every pod",
+                )
+            _drive_pair(ref, port, ref_server, server, 16)
+            assert host["port"] == host["ref"]
+            if k == 1:
+                assert sorted(host["port"]) == sorted(
+                    pi.metadata.name for pi in pods[:16]
+                ), "the tripped batch did not go to the host path"
+            else:
+                assert len(host["port"]) == len(pods)
+            assert _bound(server) == _bound(ref_server)
+            assert len(_bound(server)) == len(pods) + n_init
+            assert _series(metrics) == _series(ref_metrics)
+            trips = {
+                labels["reason"]: v
+                for _n, labels, v in metrics.snapshot_counters(
+                    "kernel_guard_trips_total"
+                )
+            }
+            assert trips[GUARD_ROW_RANGE] == k
+            assert trips["sibling_quarantine"] >= 1
+            assert port._device_down == ref._device_down == (k == 3)
+        finally:
+            ref.stop()
+            port.stop()
 
 
 @pytest.mark.parametrize("entry", ["run_benchmark", "run_latency_benchmark"])
@@ -779,20 +853,80 @@ def test_harness_fails_a_run_with_guard_trips(entry, monkeypatch):
     assert res.scheduled == 8
 
 
+@pytest.mark.parametrize("entry", ["run_benchmark", "run_latency_benchmark"])
+def test_harness_fails_a_run_whose_device_latched_down(entry, monkeypatch):
+    """Every wave launch is lost: the first loss latches the device down
+    (device_loss_disable_after=1) and the host path binds every pod, but
+    the run raises KernelGuardFailure naming the latch, its result
+    carrying device_down = 1 and the auditor's counts."""
+    from kubernetes_tpu_torch.parallel.sharded import DeviceLossError
+
+    def lost(self, *a, **kw):
+        raise DeviceLossError("injected: device lost")
+
+    monkeypatch.setattr(port_sched_mod.Scheduler, "_launch_wave_kernel", lost)
+    cfg = WorkloadConfig("SchedulingBasic", 8, 4, 8)
+    scfg = _cfg(
+        device_batch_size=16, small_batch_host_max=0,
+        device_retry_attempts=0, device_loss_disable_after=1,
+        pod_initial_backoff_seconds=0.1,
+    )
+    with pytest.raises(harness.KernelGuardFailure) as err:
+        if entry == "run_benchmark":
+            run_benchmark(cfg, sched_config=scfg, device="cpu", timeout_s=60)
+        else:
+            harness.run_latency_benchmark(
+                cfg, 20.0, n_pods=8, sched_config=scfg, timeout_s=60,
+                device="cpu",
+            )
+    assert err.value.failed == {"device_down": 1}
+    res = err.value.result
+    assert res.device_down == 1 and res.scheduled == 8
+    assert res.drift_rows == 0 and res.rebuilds == 0
+
+
 # -- entry-point rules ------------------------------------------------------
 
 
 @pytest.mark.parametrize(
     "override,item",
     [
-        (dict(host_callback_binds=True), 5),
-        (dict(antientropy_period_s=5.0), 6),
         (dict(tune_policy=True), 7),
     ],
 )
 def test_unported_settings_raise_with_their_roadmap_item(override, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
         Scheduler(APIServer(), _cfg(**override), device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override",
+    [dict(host_callback_binds=True), dict(antientropy_period_s=0.05)],
+    ids=["host_callback_binds", "antientropy"],
+)
+def test_formerly_unported_settings_construct_and_bind(override):
+    """ROADMAP queue 1 items 5 and 6 run: a Scheduler with either setting
+    constructs, binds every pod, and (the auditor) completes passes with
+    no drift, or (host callbacks) takes every fast payload from a
+    delivery."""
+    metrics.reset()
+    server = _mk_server(4)
+    sched = Scheduler(server, _cfg(**override), device="cpu")
+    sched.start()
+    try:
+        _run_pods(server, sched, 40)
+        if "antientropy_period_s" in override:
+            _wait(
+                lambda: metrics.counter("snapshot_audit_passes_total") >= 2,
+                10, "two audit passes",
+            )
+            assert _counter_sum("snapshot_drift_rows_total") == 0
+            assert _counter_sum("snapshot_rebuilds_total") == 0
+        else:
+            delivered = metrics.counter("scheduler_wave_hostcb_deliveries_total")
+            assert delivered == metrics.counter("scheduler_wave_batches_total") > 0
+    finally:
+        sched.stop()
 
 
 def test_entry_points_raise_without_a_card():
@@ -865,13 +999,13 @@ def test_run_benchmark_trace_dir_writes_a_profiler_trace(tmp_path):
 
 
 def test_reference_default_configuration_constructs():
-    """The reference's defaults (vector preemption on) and use_wave=False
-    construct; only the snapshot auditor stays off."""
+    """The reference's bare defaults (vector preemption and the snapshot
+    auditor on) construct, with use_wave on and off."""
     for cfg in (
-        KubeSchedulerConfiguration(antientropy_period_s=0),
-        KubeSchedulerConfiguration(antientropy_period_s=0, use_wave=False),
+        KubeSchedulerConfiguration(),
+        KubeSchedulerConfiguration(use_wave=False),
     ):
-        assert cfg.vector_preemption
+        assert cfg.vector_preemption and cfg.antientropy_period_s > 0
         sched = Scheduler(APIServer(), cfg, device="cpu")
         sched.stop()
 
