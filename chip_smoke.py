@@ -81,7 +81,31 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    bound, 0 guard trips, 0 blocking readbacks, every launched wave
    batch's payload taken from a delivery, the ticket registry's backlog
    back to its start, K1 launched, each pod bound once.
-12. [guards] and [device-loss] on a 500-node cluster (SchedulingPodAffinity's
+12. [whatif] (after [hostcb], on phase 5's cluster: 5,000 nodes, 6,000
+   bound pods, n_cap 8192, so 3,192 rows free, encoded into a scheduler
+   cache on the card and one on the CPU): one what-if overlay of 64
+   virtual nodes (16 of each autoscaler bench shape) and 16 masked rows,
+   every field equal card against CPU, the card's live generation
+   bit-identical afterwards (compared on the card) and sharing no storage
+   with the overlay; one WhatIfSimulator.simulate of 256 pending pods on
+   both with the same tie noise, chosen and fallback equal. Prints the
+   overlay build p50, the pass's wall, ms per pod step, and a profiled
+   pass's device busy time and launches.
+13. [autoscaler]: run_autoscaler_benchmark(n_pods=1000) (bench.py's
+   Autoscaler/1k-pending-4-shapes). Requires 1000/1000 bound (checked
+   from the API server, each pod bound once), every node from the
+   catalog, no ERROR logged, 0 guard trips, drift rows, rebuilds and
+   device-down, and K1 launched.
+14. [hetero]: run_hetero_benchmark(n_pods=300): both arms bind 300/300 and
+   the cost-aware fleet is strictly cheaper.
+15. [defrag]: run_defrag_benchmark() at its defaults: every replica bound
+   after, the fleet strictly tighter, any plan abort a rolled-back drift
+   abort (aborts and rejections printed by reason).
+16. [hardpair]: SchedulingPodAntiAffinity/5000 through run_benchmark (the
+   hard-pair path): the gate of phase 5 (all bound, bindings checked, no
+   two measured pods on one node, 0 guard trips, K1 launched); pods/s and
+   the waves of every launched batch.
+17. [guards] and [device-loss] on a 500-node cluster (SchedulingPodAffinity's
    nodes, 100 pre-bound pods; the host path binds a quarantined batch
    in seconds there) with the fault injector (testing/device_faults.py):
    a NaN score and a wild row quarantine their batches, K =
@@ -90,18 +114,22 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    launch (wave or serial) lost latches after K losses. Every pod bound
    exactly once, none oversubscribed, no assume leaked.
 
-The Scheduler phases (5-9, 11) print the auditor's passes, its skips by
+The Scheduler phases (5-9, 11, 13-16) print the auditor's passes, its skips by
 reason, drift rows, rebuilds and scheduler_device_down, and fail unless
 the last three are 0. Every phase but the fault phases fails on any ERROR
 record the port logs; a fault phase fails on any ERROR it did not cause.
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 5, 6, 7, 8, 9 and 11) and read just after. The last lines are the
+2, 5, 6, 7, 8, 9, 11 and 12-16) and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
 preemption, standby and host-callback runs (``launches_serial``,
-``launches_preempt``, ``launches_standby``, ``launches_hostcb``),
+``launches_preempt``, ``launches_standby``, ``launches_hostcb``), the
+what-if pass (``launches_whatif``: the serial lattice, no Pallas kernel
+on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
+(``launches_autoscaler``, ``launches_hetero``, ``launches_defrag``,
+``launches_hardpair``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -286,6 +314,17 @@ def bind_measurement_entries(libs) -> None:
 
 def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
+
+
+def count_k(fit_kernels) -> tuple:
+    """(K1 launches, K2 launches) since the last zero_k."""
+    return fit_kernels.fit_mask.launches, fit_kernels.fit_mask_least_alloc.launches
+
+
+def zero_k(fit_kernels) -> None:
+    """Set both kernels' launch counts to 0, just before a path runs."""
+    fit_kernels.fit_mask.launches = 0
+    fit_kernels.fit_mask_least_alloc.launches = 0
 
 
 def in_turns(timer, a, b):
@@ -525,11 +564,9 @@ def defense_report(what: str, card: str, res=None, sched=None) -> dict:
     return d
 
 
-def check_bindings(server, n_measured: int, what: str) -> None:
-    """The correctness gate on the API server's bindings: every pod bound,
-    requested <= allocatable on every node, and every measured pod
-    (``pod-*``) in a zone that held an app=bench pod (its required zone
-    affinity)."""
+def check_capacity(server, what: str):
+    """Every pod in the API server bound, and requested <= allocatable (and
+    the pod count <= its capacity) on every node. Returns (nodes, pods)."""
     from kubernetes_tpu_torch.scheduler.cache.nodeinfo import Snapshot
 
     nodes = server.list("nodes")[0]
@@ -547,6 +584,15 @@ def check_bindings(server, n_measured: int, what: str) -> None:
                 )
         if len(ni.pods) > ni.allocatable.get("pods", 0):
             raise AssertionError(f"[{what}] {ni.node.metadata.name}: too many pods")
+    return nodes, pods
+
+
+def check_bindings(server, n_measured: int, what: str) -> None:
+    """The correctness gate on the API server's bindings: every pod bound,
+    requested <= allocatable on every node, and every measured pod
+    (``pod-*``) in a zone that held an app=bench pod (its required zone
+    affinity)."""
+    nodes, pods = check_capacity(server, what)
     zone_of = {n.metadata.name: n.metadata.labels["topology.kubernetes.io/zone"] for n in nodes}
     init_zones = {
         zone_of[p.spec.node_name] for p in pods
@@ -588,11 +634,9 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
     defense_report("scheduler warm-up", card, res=warm)
 
     server = APIServer()
-    fit_kernels.fit_mask.launches = 0
-    fit_kernels.fit_mask_least_alloc.launches = 0
+    zero_k(fit_kernels)
     res = run_benchmark(wl, device=device, server=server, timeout_s=300, quiet=False)
-    k1 = fit_kernels.fit_mask.launches
-    k2 = fit_kernels.fit_mask_least_alloc.launches
+    k1, k2 = count_k(fit_kernels)
     trips, unwound = res.guard_trips, res.unwound_assumes
     blocking = metrics.counter("scheduler_wave_readbacks_blocking_total")
     log(f"[scheduler] SchedulingPodAffinity/5000 through APIServer + Scheduler: "
@@ -900,14 +944,12 @@ def phase_serial(device, card: str, errors: ErrorLog) -> dict:
 
     wl = WORKLOADS["SchedulingPodAffinity/5000"]
     server = APIServer()
-    fit_kernels.fit_mask.launches = 0
-    fit_kernels.fit_mask_least_alloc.launches = 0
+    zero_k(fit_kernels)
     res = run_benchmark(
         wl, sched_config=default_config(use_wave=False), device=device,
         server=server, timeout_s=600, quiet=False,
     )
-    k1 = fit_kernels.fit_mask.launches
-    k2 = fit_kernels.fit_mask_least_alloc.launches
+    k1, k2 = count_k(fit_kernels)
     per_batch = res.kernel_total_s / res.n_batches if res.n_batches else 0.0
     log(f"[serial] SchedulingPodAffinity/5000, use_wave=False, through APIServer + "
         f"Scheduler: {res.scheduled}/{res.num_measured_pods} bound in "
@@ -935,11 +977,9 @@ def phase_preempt(device, card: str, errors: ErrorLog) -> dict:
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.perf.harness import run_preemption_benchmark
 
-    fit_kernels.fit_mask.launches = 0
-    fit_kernels.fit_mask_least_alloc.launches = 0
+    zero_k(fit_kernels)
     res = run_preemption_benchmark(device=device, timeout_s=600)
-    k1 = fit_kernels.fit_mask.launches
-    k2 = fit_kernels.fit_mask_least_alloc.launches
+    k1, k2 = count_k(fit_kernels)
     log(f"[preempt] {res.num_nodes} full nodes, burst {res.burst_pods}: "
         f"scheduled {res.scheduled}, all bound in {res.time_to_all_bound_s:.3f} s; "
         f"victims evicted {res.victims_evicted}; select batches "
@@ -985,8 +1025,7 @@ def phase_standby(device, card: str, errors: ErrorLog) -> dict:
         server.create("pods", p)
     metrics.reset()
     sched = Scheduler(server, default_config(), device=device)
-    fit_kernels.fit_mask.launches = 0
-    fit_kernels.fit_mask_least_alloc.launches = 0
+    zero_k(fit_kernels)
     n_pods = 500
     try:
         t0 = time.perf_counter()
@@ -1015,8 +1054,7 @@ def phase_standby(device, card: str, errors: ErrorLog) -> dict:
         bound_s = time.perf_counter() - t1
     finally:
         sched.stop()
-    k1 = fit_kernels.fit_mask.launches
-    k2 = fit_kernels.fit_mask_least_alloc.launches
+    k1, k2 = count_k(fit_kernels)
     defense_report("standby", card, sched=sched)
     adopted = metrics.counter("scheduler_ha_adoptions_total", {"outcome": "pending"})
     log(f"[standby] {len(nodes)} nodes: start_standby (informer sync, snapshot, kernel "
@@ -1350,14 +1388,12 @@ def phase_hostcb(device, card: str, errors: ErrorLog) -> dict:
     wl = WORKLOADS["SchedulingPodAffinity/5000"]
     server = ledger_server()
     backlog0 = hostcallback.backlog()
-    fit_kernels.fit_mask.launches = 0
-    fit_kernels.fit_mask_least_alloc.launches = 0
+    zero_k(fit_kernels)
     res = run_benchmark(
         wl, sched_config=default_config(host_callback_binds=True), device=device,
         server=server, timeout_s=300,
     )
-    k1 = fit_kernels.fit_mask.launches
-    k2 = fit_kernels.fit_mask_least_alloc.launches
+    k1, k2 = count_k(fit_kernels)
     delivered = int(metrics.counter("scheduler_wave_hostcb_deliveries_total"))
     launched = int(metrics.counter("scheduler_wave_batches_total"))
     blocking = int(metrics.counter("scheduler_wave_readbacks_blocking_total"))
@@ -1381,6 +1417,341 @@ def phase_hostcb(device, card: str, errors: ErrorLog) -> dict:
         raise AssertionError("[hostcb] a pod was bound more than once")
     check_bindings(server, wl.num_measured_pods, "hostcb")
     return {"res": res, "k1": k1, "k2": k2}
+
+
+class SeededNoise:
+    """A what-if pass's tie noise, the same on any device: ``noise(P, N)``
+    draws [P, N] uniform floats from a CPU Generator seeded `seed` and
+    moves them to `device`, so two simulators given equal seeds see equal
+    noise."""
+
+    def __init__(self, seed: int, device):
+        self.gen = torch.Generator().manual_seed(seed)
+        self.device = device
+
+    def __call__(self, p: int, n: int) -> torch.Tensor:
+        return torch.rand((p, n), generator=self.gen).to(self.device)
+
+
+def whatif_request(factory, n_pods: int = 256, per_group: int = 16, n_big: int = 16):
+    """The [whatif] request: 16 virtual nodes of each of the autoscaler
+    bench's four shapes (the planner's stable slot names), 16 live nodes
+    to mask, and `n_pods` pending pods: SchedulingPodAffinity's measured
+    pods, and `n_big` 12-cpu pods that only a 16- or 32-cpu virtual node
+    can hold."""
+    from kubernetes_tpu_torch.api import objects as v1
+    from kubernetes_tpu_torch.perf.workloads import autoscaler_candidate_shapes
+
+    virtual = [
+        g.make_node(f"whatif.{g.name}.{i}")
+        for g in autoscaler_candidate_shapes() for i in range(per_group)
+    ]
+    masked = [f"node-{i}" for i in range(0, 16 * 97, 97)]
+    pods = [factory(300000 + i) for i in range(n_pods - n_big)] + [
+        v1.Pod(
+            metadata=v1.ObjectMeta(name=f"whatif-big-{i}"),
+            spec=v1.PodSpec(containers=[v1.Container(requests={"cpu": "12"})]),
+        )
+        for i in range(n_big)
+    ]
+    return virtual, masked, pods
+
+
+def phase_whatif(server, device, card: str, errors: ErrorLog) -> dict:
+    """[whatif] on the [scheduler] phase's cluster (the API server's 5,000
+    nodes and 6,000 bound pods; n_cap 8192, so 3,192 rows are free),
+    encoded into a SchedulerCache on the card and one on the CPU. One
+    overlay of 64 virtual nodes (16 of each autoscaler bench shape) and 16
+    masked rows on both: every field equal, the card's live generation the
+    same object and bit-identical afterwards (compared on the card), no
+    overlay tensor sharing its storage. Then one WhatIfSimulator.simulate
+    of 256 pending pods over that request on both, with the same tie
+    noise: chosen and fallback equal. Times the overlay build (p50 of 20)
+    and the card's pass; profiles one more pass (device busy, launches)."""
+    from kubernetes_tpu_torch.autoscaler import WhatIfSimulator
+    from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.scheduler.cache.cache import SchedulerCache
+
+    errors.check("before whatif")
+    nodes = server.list("nodes")[0]
+    pods = [p for p in server.list("pods")[0] if p.spec.node_name]
+    _n, _i, factory = build_workload(WORKLOADS["SchedulingPodAffinity/5000"])
+
+    def build(dev):
+        enc = SnapshotEncoder(EncodingConfig.for_cluster(len(nodes)), device=dev)
+        cache = SchedulerCache(encoder=enc)
+        for n in nodes:
+            cache.add_node(n)
+        for p in pods:
+            cache.add_pod(p)
+        with cache.lock:
+            enc.flush()
+        return cache
+
+    caches = {"card": build(device), "cpu": build(torch.device("cpu"))}
+    enc = caches["card"].encoder
+    n_cap = enc.cfg.n_cap
+    n_free = len(enc.free_row_indices())
+    virtual, masked, pending = whatif_request(factory)
+    live = enc._device
+    before = [t.clone() for t in live]
+    rows = [enc.row_of(m) for m in masked]
+    overlays = {}
+    for where, cache in caches.items():
+        with cache.lock:
+            overlays[where] = cache.encoder.whatif_overlay(virtual, rows)
+    (snap, vrows), (cpu_snap, cpu_rows) = overlays["card"], overlays["cpu"]
+    if vrows != cpu_rows or len(vrows) != len(virtual):
+        raise AssertionError(f"[whatif] virtual rows {vrows[:4]}... vs CPU {cpu_rows[:4]}...")
+    for f in snap._fields:
+        if not torch.equal(getattr(snap, f).cpu(), getattr(cpu_snap, f)):
+            raise AssertionError(f"[whatif] overlay field {f}: card != CPU")
+    if enc._device is not live:
+        raise AssertionError("[whatif] the overlay replaced the live generation")
+    for f, b, now in zip(live._fields, before, live):
+        if not torch.equal(b, now):
+            raise AssertionError(f"[whatif] the overlay changed live field {f}")
+    ptrs = {t.untyped_storage().data_ptr() for t in live}
+    if any(t.untyped_storage().data_ptr() in ptrs for t in snap):
+        raise AssertionError("[whatif] an overlay tensor shares the live generation's storage")
+    del snap, cpu_snap, overlays
+    build_ms = []
+    for _ in range(20):
+        with caches["card"].lock:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ov = enc.whatif_overlay(virtual, rows)
+            torch.cuda.synchronize()
+            build_ms.append((time.perf_counter() - t0) * 1e3)
+        del ov
+
+    sims = {
+        where: WhatIfSimulator(cache, noise=SeededNoise(7, cache.encoder.device))
+        for where, cache in caches.items()
+    }
+    res, wall = {}, {}
+    for where in ("card", "cpu"):
+        t0 = time.perf_counter()
+        res[where] = sims[where].simulate(pending, virtual, mask_nodes=masked)
+        wall[where] = time.perf_counter() - t0
+    rc, rp = res["card"], res["cpu"]
+    if not (np.array_equal(rc.chosen, rp.chosen) and np.array_equal(rc.fallback, rp.fallback)):
+        bad = int((rc.chosen != rp.chosen).sum())
+        raise AssertionError(f"[whatif] simulate: chosen differs at {bad} pods (card vs CPU)")
+    if rc.virtual_rows != rp.virtual_rows:
+        raise AssertionError("[whatif] simulate: virtual rows differ")
+    placed = int((rc.chosen >= 0).sum())
+    on_virtual = int(np.isin(rc.chosen, list(rc.virtual_rows)).sum())
+    masked_rows = {enc.row_of(m) for m in masked}
+    if placed == 0 or on_virtual == 0 or masked_rows & set(rc.chosen.tolist()):
+        raise AssertionError(
+            f"[whatif] {placed} placed, {on_virtual} on virtual rows, or a pod on a masked row"
+        )
+    if enc._device is not live or any(not torch.equal(b, t) for b, t in zip(before, live)):
+        raise AssertionError("[whatif] the pass changed the live generation")
+    pad = sims["card"]._pad(len(pending))
+    try:
+        prof = profile_device(
+            f"what-if pass, {len(pending)} pods (pad {pad}) over {n_cap} rows",
+            lambda: sims["card"].simulate(pending, virtual, mask_nodes=masked),
+        )
+    except (RuntimeError, AttributeError) as e:  # measurement only
+        log(f"[profile] what-if pass device time not measured: {e}")
+        prof = {"wall_ms": None, "busy_ms": None, "launches": None}
+    out = {
+        "build_p50_ms": float(np.median(build_ms)),
+        "pass_s": wall["card"], "cpu_pass_s": wall["cpu"],
+        "ms_per_step": wall["card"] * 1e3 / pad, "pad": pad, **prof,
+    }
+    busy = "not measured" if prof["busy_ms"] is None else f"{prof['busy_ms']:.3f} ms"
+    log(f"[whatif] {len(nodes)} nodes, {len(pods)} pods, n_cap {n_cap} ({n_free} rows "
+        f"free): overlay of {len(virtual)} virtual nodes + {len(masked)} masked rows "
+        f"equal to the CPU's field by field, the live generation untouched and "
+        f"sharing no storage; overlay build p50 {out['build_p50_ms']:.3f} ms; "
+        f"simulate {len(pending)} pods (pad {pad}): card {wall['card']:.3f} s "
+        f"({out['ms_per_step']:.3f} ms per pod step), CPU {wall['cpu']:.3f} s, chosen "
+        f"and fallback equal ({placed} placed, {on_virtual} on virtual rows); "
+        f"profiled pass: wall {prof['wall_ms'] and round(prof['wall_ms'], 2)} ms, "
+        f"device busy {busy}, {prof['launches']} launches; card {card}")
+    errors.check("whatif")
+    return out
+
+
+def phase_autoscaler(device, card: str, errors: ErrorLog) -> dict:
+    """[autoscaler] run_autoscaler_benchmark(n_pods=1000): bench.py's
+    Autoscaler/1k-pending-4-shapes, 1,000 pending 500m pods against an
+    empty cluster and the four-shape catalog. Fails unless 1000/1000 are
+    bound (checked from the API server, each pod bound once), every node
+    comes from the catalog, no ERROR is logged, guard trips, drift rows,
+    rebuilds and device-down are 0 (the harness raises otherwise), and K1
+    was launched."""
+    from kubernetes_tpu_torch.autoscaler import NodeGroupCatalog
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_autoscaler_benchmark
+    from kubernetes_tpu_torch.perf.workloads import autoscaler_candidate_shapes
+
+    errors.check("before autoscaler")
+    server = ledger_server()
+    zero_k(fit_kernels)
+    res = run_autoscaler_benchmark(n_pods=1000, device=device, server=server)
+    k1, k2 = count_k(fit_kernels)
+    log(f"[autoscaler] 1000 pending 500m pods, 4 shapes: {res.scheduled}/{res.num_pods} "
+        f"bound in {res.time_to_all_bound_s:.3f} s; {res.nodes_provisioned} nodes "
+        f"{json.dumps(res.nodes_by_group, sort_keys=True)}; {res.simulation_passes} "
+        f"simulation passes, p50/p99 {res.simulation_p50_ms:.1f}/"
+        f"{res.simulation_p99_ms:.1f} ms; guard trips {res.guard_trips}, unwound "
+        f"assumes {res.unwound_assumes}; K1 launches {k1}, K2 launches {k2}; card {card}")
+    errors.check("autoscaler")
+    defense_report("autoscaler", card, res=res)
+    if res.scheduled != res.num_pods or res.guard_trips:
+        raise AssertionError(f"[autoscaler] {res.scheduled}/{res.num_pods} bound")
+    nodes, _pods = check_capacity(server, "autoscaler")
+    catalog = NodeGroupCatalog(autoscaler_candidate_shapes())
+    stray = [n.metadata.name for n in nodes if catalog.group_of_node(n) is None]
+    if stray or len(nodes) != res.nodes_provisioned:
+        raise AssertionError(f"[autoscaler] nodes outside the catalog: {stray[:3]}")
+    if any(c != 1 for c in server.applied.values()):
+        raise AssertionError("[autoscaler] a pod was bound more than once")
+    if k1 <= 0:
+        raise AssertionError("[autoscaler] the Scheduler never launched K1")
+    log(f"[autoscaler] checked from the API server: {res.num_pods} pods bound once, "
+        f"requested <= allocatable on all {len(nodes)} nodes, every node from the catalog")
+    return {"res": res, "k1": k1, "k2": k2}
+
+
+def phase_hetero(device, card: str, errors: ErrorLog) -> dict:
+    """[hetero] run_hetero_benchmark(n_pods=300): the same pending burst
+    autoscaled cost-aware and cost-blind on the mixed-cost catalog. Fails
+    unless both arms bind 300/300 and the cost-aware fleet is strictly
+    cheaper, with no ERROR logged."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_hetero_benchmark
+
+    errors.check("before hetero")
+    zero_k(fit_kernels)
+    res = run_hetero_benchmark(n_pods=300, device=device)
+    k1, k2 = count_k(fit_kernels)
+    log(f"[hetero] {res.num_pods} pods, {res.num_shapes} shapes: cost-aware "
+        f"{res.cost_aware_scheduled} bound, ${res.cost_aware_fleet_per_hour}/h "
+        f"{json.dumps(res.cost_aware_nodes, sort_keys=True)} in {res.cost_aware_time_s} s; "
+        f"cost-blind {res.blind_scheduled} bound, ${res.blind_fleet_per_hour}/h "
+        f"{json.dumps(res.blind_nodes, sort_keys=True)} in {res.blind_time_s} s; "
+        f"strictly cheaper {res.strictly_cheaper}; guard trips {res.guard_trips}; "
+        f"K1 launches {k1}, K2 launches {k2}; card {card}")
+    errors.check("hetero")
+    defense_report("hetero", card, res=res)
+    if res.cost_aware_scheduled != res.num_pods or res.blind_scheduled != res.num_pods:
+        raise AssertionError("[hetero] an arm left pods unbound")
+    if not res.strictly_cheaper:
+        raise AssertionError("[hetero] the cost-aware fleet is not strictly cheaper")
+    if k1 <= 0:
+        raise AssertionError("[hetero] the Schedulers never launched K1")
+    return {"res": res, "k1": k1, "k2": k2}
+
+
+def phase_defrag(device, card: str, errors: ErrorLog) -> dict:
+    """[defrag] run_defrag_benchmark() at its defaults (8 nodes, 32 pods
+    under a ReplicaSet, half the nodes nearly empty). Fails unless every
+    replica is bound after, the fleet is strictly tighter (fewer nodes, a
+    lower bill), every plan abort is a drift abort whose cordons were
+    rolled back, and no ERROR is logged. Prints aborts and rejections by
+    reason."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_defrag_benchmark
+
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    def by_reason(name):
+        out = {}
+        for _n, labels, v in metrics.snapshot_counters(name):
+            out[labels.get("reason", "")] = out.get(labels.get("reason", ""), 0) + int(v)
+        return out
+
+    errors.check("before defrag")
+    zero_k(fit_kernels)
+    res = run_defrag_benchmark(device=device)
+    k1, k2 = count_k(fit_kernels)
+    aborts = by_reason("descheduler_plan_aborts_total")
+    uncordons = int(metrics.counter("descheduler_rollback_uncordons_total"))
+    log(f"[defrag] {res.num_pods} pods: nodes {res.nodes_before} -> {res.nodes_after}, "
+        f"${res.fleet_per_hour_before}/h -> ${res.fleet_per_hour_after}/h, "
+        f"fragmentation {res.fragmentation_before} -> {res.fragmentation_after}; "
+        f"{res.plans} plans, {res.evictions} evictions, {res.aborts} aborts "
+        f"{json.dumps(aborts, sort_keys=True)}, rejections "
+        f"{json.dumps(by_reason('descheduler_plan_rejected_total'), sort_keys=True)}, "
+        f"rollback uncordons {uncordons}; "
+        f"{res.bound_after} bound after; quiesced in {res.time_to_quiesce_s} s; "
+        f"strictly tighter {res.strictly_tighter}; K1 launches {k1}, K2 launches "
+        f"{k2}; card {card}")
+    errors.check("defrag")
+    defense_report("defrag", card, res=res)
+    if res.bound_after != res.num_pods or not res.strictly_tighter:
+        raise AssertionError("[defrag] not every replica bound, or not strictly tighter")
+    # an abort is the executor refusing a plan whose proof went stale; the
+    # only one this run can meet is drift (a replacement pod bound onto a
+    # planned node before the scheduler saw its cordon), rolled back
+    if set(aborts) - {"drift"} or (res.aborts and uncordons < res.aborts):
+        raise AssertionError(f"[defrag] aborts {aborts} not rolled-back drift aborts")
+    if k1 <= 0:
+        raise AssertionError("[defrag] the Scheduler never launched K1")
+    return {"res": res, "k1": k1, "k2": k2}
+
+
+def phase_hardpair(device, card: str, errors: ErrorLog) -> dict:
+    """[hardpair] SchedulingPodAntiAffinity/5000 (5,000 nodes, 1,000
+    initial pods, 4,000 measured pods with required hostname
+    anti-affinity among app=bench) through run_benchmark: the hard-pair
+    path. The gate of [scheduler]: all bound, bindings checked from the
+    API server (capacity, and no node holding two measured pods), 0 guard
+    trips, no ERROR logged, K1 launched. Prints the waves of every
+    launched batch."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_benchmark
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+    from kubernetes_tpu_torch.scheduler import scheduler as sched_mod
+
+    errors.check("before hardpair")
+    wl = WORKLOADS["SchedulingPodAntiAffinity/5000"]
+    server = ledger_server()
+    waves = []
+    real = sched_mod.make_wave_kernel
+
+    def recorded(*variant):
+        waves.append(variant[2])
+        return real(*variant)
+
+    zero_k(fit_kernels)
+    sched_mod.make_wave_kernel = recorded
+    try:
+        res = run_benchmark(wl, device=device, server=server, timeout_s=300)
+    finally:
+        sched_mod.make_wave_kernel = real
+    k1, k2 = count_k(fit_kernels)
+    log(f"[hardpair] SchedulingPodAntiAffinity/5000 through APIServer + Scheduler: "
+        f"{res.scheduled}/{res.num_measured_pods} bound in {res.duration_s:.3f} s = "
+        f"{res.throughput_pods_per_s:.1f} pods/s; e2e p50/p99 {res.e2e_p50_ms:.1f}/"
+        f"{res.e2e_p99_ms:.1f} ms; {res.n_batches} measured batches; waves per "
+        f"launched batch {waves}; guard trips {res.guard_trips}, unwound assumes "
+        f"{res.unwound_assumes}; K1 launches {k1}, K2 launches {k2}; card {card}")
+    errors.check("hardpair")
+    defense_report("hardpair", card, res=res)
+    if res.scheduled != res.num_measured_pods or res.unscheduled:
+        raise AssertionError(f"[hardpair] {res.unscheduled} measured pods not bound")
+    if res.guard_trips or res.unwound_assumes:
+        raise AssertionError(f"[hardpair] {res.guard_trips} guard trips")
+    if k1 <= 0:
+        raise AssertionError("[hardpair] the Scheduler never launched K1")
+    _nodes, pods = check_capacity(server, "hardpair")
+    hosts = [p.spec.node_name for p in pods if p.metadata.name.startswith("pod-")]
+    if len(hosts) != wl.num_measured_pods or len(set(hosts)) != len(hosts):
+        raise AssertionError("[hardpair] two measured pods share a node (anti-affinity)")
+    if any(c != 1 for c in server.applied.values()):
+        raise AssertionError("[hardpair] a pod was bound more than once")
+    log(f"[hardpair] checked from the API server: {len(pods)} pods bound once, "
+        f"requested <= allocatable everywhere, the {len(hosts)} measured pods on "
+        f"{len(set(hosts))} distinct nodes")
+    return {"res": res, "k1": k1, "k2": k2, "waves": waves}
 
 
 def main(argv=None) -> int:
@@ -1435,12 +1806,9 @@ def main(argv=None) -> int:
 
     res, k1_launches, k2_launches, sched_server = phase_scheduler(device, card, errors)
     phase_audit(sched_server, device, card, errors)
-    del sched_server
-    fit_kernels.fit_mask.launches = 0
-    fit_kernels.fit_mask_least_alloc.launches = 0
+    zero_k(fit_kernels)
     phase_latency(device, res.throughput_pods_per_s, errors, card)
-    k1_latency = fit_kernels.fit_mask.launches
-    k2_latency = fit_kernels.fit_mask_least_alloc.launches
+    k1_latency, k2_latency = count_k(fit_kernels)
     log(f"[latency] K1 launches {k1_latency}, K2 launches {k2_latency}")
     if k1_latency <= 0:
         raise AssertionError("[latency] the Scheduler never launched K1")
@@ -1453,6 +1821,14 @@ def main(argv=None) -> int:
     if standby["k1"] <= 0:
         raise AssertionError("[standby] the warm-up and the promoted loop never launched K1")
     hostcb = phase_hostcb(device, card, errors)
+    zero_k(fit_kernels)
+    phase_whatif(sched_server, device, card, errors)
+    whatif = dict(zip(("k1", "k2"), count_k(fit_kernels)))
+    del sched_server
+    autoscaler = phase_autoscaler(device, card, errors)
+    hetero = phase_hetero(device, card, errors)
+    defrag = phase_defrag(device, card, errors)
+    hardpair = phase_hardpair(device, card, errors)
     phase_guards(device, card, errors)
     phase_device_loss(device, card, errors)
 
@@ -1462,6 +1838,11 @@ def main(argv=None) -> int:
             "launches_preempt": preempt[k],
             "launches_standby": standby[k],
             "launches_hostcb": hostcb[k],
+            "launches_whatif": whatif[k],
+            "launches_autoscaler": autoscaler[k],
+            "launches_hetero": hetero[k],
+            "launches_defrag": defrag[k],
+            "launches_hardpair": hardpair[k],
         }
 
     kernels = {

@@ -21,9 +21,12 @@ device-row gather, one ``index_select`` per row-major field under a
 generation pin and one device->host copy, ordered on the device's
 default stream after the writes that produced the pinned generation),
 ``swap_live_snapshot`` (the fault injector's install hook, copied) and
-``has_pending_updates``. Not ported yet: ``whatif_overlay`` (ROADMAP
-queue 1 item 7), ``set_sharding`` (item 8) and ``warm_scatter_programs``
-(an XLA-compile warmer with no counterpart in eager torch).
+``has_pending_updates``. The autoscaler's and descheduler's what-if
+overlay is ``whatif_overlay`` (with ``free_row_indices``, copied): fresh
+clones of the pinned generation with the virtual and masked rows written
+in. Not ported yet: ``set_sharding`` (ROADMAP queue 1 item 6);
+``warm_scatter_programs`` (an XLA-compile warmer) has no counterpart in
+eager torch.
 ``add_pods_bulk`` (the cache's bulk assume), the row-aggregate repair the
 cache's unwind path calls, ``utilization_stats`` and the PDB budget
 column refresh (``update_pdb_blocked``, read by
@@ -1845,6 +1848,100 @@ class SnapshotEncoder:
         )
 
     # -- what-if simulation overlay (autoscaler) -----------------------------
+
+    def free_row_indices(self) -> List[int]:
+        """Row indices holding no live node (freed or never allocated), in
+        ascending order — the rows a what-if overlay may claim for virtual
+        candidate nodes without perturbing any live row."""
+        used = {r for r, n in enumerate(self.row_names) if n is not None}
+        return [r for r in range(self.cfg.n_cap) if r not in used]
+
+    def whatif_overlay(
+        self,
+        virtual_nodes: List[v1.Node],
+        mask_rows: Optional[List[int]] = None,
+    ) -> Optional[Tuple[DeviceSnapshot, List[int]]]:
+        """Copy-on-append simulation view of the snapshot: K VIRTUAL node
+        rows (candidate machine shapes from the autoscaler's NodeGroup
+        catalog) written into the first free rows of a COPY of the live
+        snapshot, plus `mask_rows` (drain what-if) flipped invalid.
+        Returns (overlay_snapshot, rows) with rows[i] the row index
+        assigned to virtual_nodes[i]; None when n_cap has no room for K
+        more rows (growing n_cap here would reshape every kernel input
+        mid-run). A virtual row holds `encode_node_row_values` and zero
+        pod aggregates; a masked row holds its master values with `valid`
+        cleared; the global fields are the masters'.
+
+        Isolation: the overlay is built under a generation pin. Its base
+        is the pinned live generation when no host update is pending
+        (the device may then also hold kernel commits the masters have
+        not replayed yet, the more current view), else a fresh upload of
+        the masters. Every field of the result is freshly allocated — a
+        ``clone()`` of the base, then one ``index_copy_`` of all the rows
+        per field — so it shares no storage with any live or pinned
+        generation. It is never installed and never handed to a
+        ``DonationLease``. All of it runs on the encoder's device, queued
+        on the default stream like ``fetch_device_rows``, i.e. after the
+        writes that produced the pinned generation; the reference's
+        padded ``_SCATTER_PAD_*`` chunks existed for XLA's program cache
+        and are not needed in eager torch. The reference's replicated
+        overlay for a sharded snapshot waits for ``set_sharding``
+        (ROADMAP queue 1 item 6).
+
+        Caller must hold the cache lock (vocab interning + the masters
+        read must be consistent with row_names)."""
+        mask_rows = list(mask_rows or [])
+        free = self.free_row_indices()
+        if len(virtual_nodes) > len(free):
+            return None
+        rows = free[: len(virtual_nodes)]
+        # intern first: virtual labels/taints can grow capacities (shapes
+        # change), which must settle before the base snapshot is chosen
+        encoded = [self.encode_node_row_values(n) for n in virtual_nodes]
+        masters = self._masters()
+        all_rows = rows + mask_rows
+        idx_np = np.asarray(all_rows, np.int64)
+        dev = self.device
+        stream = (
+            torch.cuda.stream(torch.cuda.default_stream(dev))
+            if dev.type == "cuda"
+            else contextlib.nullcontext()
+        )
+        with self.pin_generation() as lease, stream:
+            if lease.snap is not None and not self.has_pending_updates:
+                base = lease.snap
+                fresh = False
+            else:
+                base = _upload(masters, dev)
+                fresh = True
+            idx = torch.as_tensor(idx_np).to(dev)
+            out = {}
+            for name in DeviceSnapshot._fields:
+                m = getattr(masters, name)
+                if name in _GLOBAL_FIELDS:
+                    out[name] = torch.tensor(m, device=dev)
+                    continue
+                dst = getattr(base, name)
+                if not fresh:
+                    dst = dst.clone()
+                if all_rows:
+                    arr = np.zeros((len(all_rows),) + m.shape[1:], m.dtype)
+                    for j, row in enumerate(all_rows):
+                        if j < len(rows):
+                            # virtual row: node-static encoded values; the
+                            # pod-aggregate columns stay zero (empty node)
+                            v = encoded[j].get(name)
+                            if v is not None:
+                                arr[j] = v
+                        else:
+                            # masked row: live values with valid cleared
+                            arr[j] = m[row]
+                            if name == "valid":
+                                arr[j] = False
+                    dst.index_copy_(0, idx, torch.tensor(arr, device=dev))
+                out[name] = dst
+        return DeviceSnapshot(**out), rows
+
 
 class UtilizationStats(NamedTuple):
     """Per-row utilization/stranding columns (SnapshotEncoder.

@@ -4,7 +4,7 @@ Only ``_default_probe`` is ported: the single-device branch of the
 Scheduler's device-loss ladder asks it whether the card still answers.
 The mesh (``make_mesh``, the snapshot shardings) and the mesh-shrink
 helpers (``surviving_devices``, ``largest_pow2_prefix``) wait for the
-multi-device slice, ROADMAP queue 1 item 8.
+multi-device slice, ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Only the classifier and the retry helpers are ported: the Scheduler's
 device-loss ride-through uses them on one card. The node-axis sharded
 kernels of the reference module (``make_sharded_schedule_batch``,
 ``make_sharded_wave_kernel``, ``shard_snapshot``) are the multi-device
-slice, ROADMAP queue 1 item 8.
+slice, ROADMAP queue 1 item 6.
 
 The reference's markers are XLA runtime and tunnel messages; they stay
 as they are. On a CUDA card a lost device shows as a CUDA runtime error,

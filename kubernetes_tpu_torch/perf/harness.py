@@ -8,17 +8,21 @@ PyTorch port of ``kubernetes_tpu/perf/harness.py``: ``run_benchmark`` (what
 ``device="cpu"``). The default scheduler configuration is the reference's
 defaults, the snapshot auditor on. ``trace_dir`` (the reference's
 ``xplane_dir``) records a ``torch.profiler`` trace of the run body as a
-Chrome trace. The autoscaler, read-path, serving, heterogeneity, tuner,
-durability and defragmentation benchmarks wait for their modules.
+Chrome trace. The capacity-planning entries ``run_autoscaler_benchmark``,
+``run_hetero_benchmark`` and ``run_defrag_benchmark`` drive the port's
+``ClusterAutoscaler`` and ``Descheduler`` (copies) over the same
+Scheduler. The read-path, serving, tuner and durability benchmarks wait
+for their modules.
 
 Every entry counts the data-plane defense of the whole run into its
 result: the auditor's passes and skipped passes by reason, the drift rows
 it found, its snapshot rebuilds and whether the device latched down; the
-throughput and latency entries also count the kernel-output guard trips
-and the trailing unwound assumes. A run in which any of drift rows,
-rebuilds, device down (or, for those two entries, guard trips or unwound
-assumes) is above 0 raises ``KernelGuardFailure`` carrying that result: a
-batch that failed the guards took the host path, and a drifted or
+throughput, latency and capacity-planning entries also count the
+kernel-output guard trips and the trailing unwound assumes. A run in
+which any of drift rows, rebuilds, device down (or, for those entries,
+guard trips or unwound assumes) is above 0 raises ``KernelGuardFailure``
+carrying that result: a batch that failed the guards took the host
+path, and a drifted or
 rebuilt snapshot or a latched device means the numbers do not describe a
 correct run on the card. The preemption entry reports its own preemption
 guard trips and fallbacks by reason, as the reference's does.
@@ -53,12 +57,13 @@ from .workloads import WorkloadConfig, build_workload
 class KernelGuardFailure(RuntimeError):
     """A run saw kernel-output guard trips, unwound assumes, snapshot
     drift or rebuilds, or the device latched down; ``result`` holds the
-    run's BenchResult, LatencyResult or PreemptionBenchResult and
+    run's result (BenchResult, LatencyResult, PreemptionBenchResult or a
+    capacity-planning result) and
     ``failed`` the nonzero counts by name."""
 
     def __init__(self, result, failed: Dict[str, int]):
         super().__init__(
-            f"{getattr(result, 'workload', 'preemption')}: "
+            f"{getattr(result, 'workload', type(result).__name__)}: "
             + ", ".join(f"{v} {k.replace('_', ' ')}" for k, v in failed.items())
         )
         self.result = result
@@ -709,6 +714,458 @@ def run_preemption_benchmark(
     return _check_guards(
         _add_defense(res, sched), ("drift_rows", "rebuilds", "device_down")
     )
+
+
+# the defense fields every capacity-planning result carries (the
+# data-plane defense over the whole run, as in BenchResult): above 0,
+# guard trips, unwound assumes, drift rows, rebuilds or device down raise
+# KernelGuardFailure
+@dataclass
+class _Defense:
+    guard_trips: int = 0
+    unwound_assumes: int = 0
+    audit_passes: int = 0
+    audit_skips: Dict[str, int] = field(default_factory=dict)
+    drift_rows: int = 0
+    rebuilds: int = 0
+    device_down: int = 0
+
+
+def _finish(res, scheds: tuple, before: tuple = (), guards: tuple = (0, 0)):
+    """Fill a capacity-planning result's defense fields over the run's
+    Schedulers (`before`: defense counts, `guards`: guard trips and
+    unwound assumes, read ahead of a mid-run metrics reset) and raise
+    KernelGuardFailure if any is above 0."""
+    trips, unwound = _guard_counts()
+    res.guard_trips = trips + guards[0]
+    res.unwound_assumes = unwound + guards[1]
+    _add_defense(res, scheds[-1], *before)
+    res.device_down = sum(int(s._device_down) for s in scheds)
+    return _check_guards(res)
+
+
+@dataclass
+class AutoscalerBenchResult(_Defense):
+    """The `autoscaler` bench workload: N pending pods against an empty
+    cluster with a candidate-shape catalog — how long until the
+    scale-up→provision→flush→bind loop has EVERY pod bound."""
+
+    num_pods: int = 0
+    num_shapes: int = 0
+    scheduled: int = 0
+    time_to_all_bound_s: float = 0.0
+    nodes_provisioned: int = 0
+    nodes_by_group: Dict[str, int] = field(default_factory=dict)
+    simulation_passes: int = 0
+    simulation_p50_ms: float = 0.0
+    simulation_p99_ms: float = 0.0
+
+
+def run_autoscaler_benchmark(
+    n_pods: int = 1000,
+    pod_cpu: str = "500m",
+    timeout_s: float = 300.0,
+    period_s: float = 0.5,
+    max_provision_per_cycle: int = 16,
+    device: DeviceLike = None,
+    server: Optional[APIServer] = None,
+) -> AutoscalerBenchResult:
+    """Time-to-all-bound for a pending-pod burst served entirely by
+    autoscaler-provisioned capacity (store-acked nodes, like the
+    throughput harness). device: None means the CUDA card (raises without
+    one). server: an empty APIServer to run on (a caller that checks the
+    bindings and nodes afterwards passes its own); None makes a fresh
+    one."""
+    from ..api.objects import Container, ObjectMeta, PodSpec
+    from ..autoscaler import ClusterAutoscaler, NodeGroupCatalog
+    from .workloads import autoscaler_candidate_shapes
+
+    dev = resolve_device(device)
+    metrics.reset()
+    server = server if server is not None else APIServer()
+    sched = Scheduler(server, default_config(), device=dev)
+    groups = autoscaler_candidate_shapes()
+    auto = ClusterAutoscaler(
+        server,
+        sched,
+        NodeGroupCatalog(groups),
+        period_s=period_s,
+        max_provision_per_cycle=max_provision_per_cycle,
+        scale_down_enabled=False,
+    )
+    for i in range(n_pods):
+        server.create(
+            "pods",
+            Pod(
+                metadata=ObjectMeta(name=f"asc-{i}"),
+                spec=PodSpec(
+                    containers=[Container(requests={"cpu": pod_cpu})]
+                ),
+            ),
+        )
+    sched.start()
+    t0 = time.monotonic()
+    auto.start()
+    try:
+        deadline = time.monotonic() + timeout_s
+        scheduled = 0
+        while time.monotonic() < deadline:
+            scheduled = _count_scheduled(server)
+            if scheduled >= n_pods:
+                break
+            time.sleep(0.05)
+        elapsed = time.monotonic() - t0
+    finally:
+        auto.stop()
+        sched.stop()
+    nodes, _ = server.list("nodes")
+    by_group = {
+        g.name: int(
+            metrics.counter(
+                "autoscaler_nodes_provisioned_total", {"group": g.name}
+            )
+        )
+        for g in groups
+    }
+    sim_h = metrics.histogram("autoscaler_simulation_duration_seconds")
+    passes = sum(
+        v
+        for _n, _l, v in metrics.snapshot_counters(
+            "autoscaler_simulation_passes_total"
+        )
+    )
+    p50, p99 = sim_h.quantiles((0.5, 0.99)) if sim_h else (0.0, 0.0)
+    res = AutoscalerBenchResult(
+        num_pods=n_pods,
+        num_shapes=len(groups),
+        scheduled=scheduled,
+        time_to_all_bound_s=elapsed,
+        nodes_provisioned=len(nodes),
+        nodes_by_group=by_group,
+        simulation_passes=int(passes),
+        simulation_p50_ms=p50 * 1e3,
+        simulation_p99_ms=p99 * 1e3,
+    )
+    return _finish(res, (sched,))
+
+
+@dataclass
+class HeteroBenchResult(_Defense):
+    """The `hetero` bench workload: one pending burst autoscaled twice —
+    cheapest-feasible-shape packing vs cost-blind MostAllocated — on the
+    mixed-cost catalog. Equal feasibility (same pods bound), strictly
+    cheaper fleet is the acceptance bar. The defense fields sum both
+    arms."""
+
+    num_pods: int = 0
+    num_shapes: int = 0
+    cost_aware_scheduled: int = 0
+    cost_aware_nodes: Dict[str, int] = field(default_factory=dict)
+    cost_aware_fleet_per_hour: float = 0.0
+    cost_aware_time_s: float = 0.0
+    blind_scheduled: int = 0
+    blind_nodes: Dict[str, int] = field(default_factory=dict)
+    blind_fleet_per_hour: float = 0.0
+    blind_time_s: float = 0.0
+
+    @property
+    def strictly_cheaper(self) -> bool:
+        return (
+            self.cost_aware_scheduled >= self.blind_scheduled
+            and self.cost_aware_fleet_per_hour < self.blind_fleet_per_hour
+        )
+
+
+def run_hetero_benchmark(
+    n_pods: int = 300,
+    timeout_s: float = 300.0,
+    period_s: float = 0.5,
+    device: DeviceLike = None,
+) -> HeteroBenchResult:
+    """Run the same pending burst through the autoscaler twice on the
+    mixed-cost catalog (perf/workloads.hetero_candidate_shapes):
+    cost_aware=True (cheapest-feasible-shape) vs cost_aware=False (pure
+    MostAllocated pack). device: None means the CUDA card (raises without
+    one)."""
+    from ..api import objects as v1
+    from ..autoscaler import ClusterAutoscaler, NodeGroupCatalog
+    from .workloads import hetero_candidate_shapes
+
+    dev = resolve_device(device)
+
+    def one_arm(cost_aware: bool):
+        metrics.reset()
+        server = APIServer()
+        sched = Scheduler(server, default_config(), device=dev)
+        groups = hetero_candidate_shapes()
+        auto = ClusterAutoscaler(
+            server,
+            sched,
+            NodeGroupCatalog(groups),
+            period_s=period_s,
+            scale_down_enabled=False,
+            cost_aware=cost_aware,
+        )
+        for i in range(n_pods):
+            server.create(
+                "pods",
+                Pod(
+                    metadata=v1.ObjectMeta(name=f"h-{i}"),
+                    spec=v1.PodSpec(
+                        containers=[v1.Container(requests={"cpu": "1"})]
+                    ),
+                ),
+            )
+        sched.start()
+        t0 = time.monotonic()
+        auto.start()
+        try:
+            deadline = time.monotonic() + timeout_s
+            scheduled = 0
+            while time.monotonic() < deadline:
+                scheduled = _count_scheduled(server)
+                if scheduled >= n_pods:
+                    break
+                time.sleep(0.1)
+            elapsed = time.monotonic() - t0
+        finally:
+            auto.stop()
+            sched.stop()
+        nodes, _ = server.list("nodes")
+        catalog = NodeGroupCatalog(groups)
+        by_group: Dict[str, int] = {}
+        fleet = 0.0
+        for n in nodes:
+            g = catalog.group_of_node(n)
+            if g is not None:
+                by_group[g.name] = by_group.get(g.name, 0) + 1
+                fleet += g.cost_per_hour()
+        return (scheduled, by_group, round(fleet, 3), elapsed, sched,
+                defense_counts(), _guard_counts())
+
+    aware = one_arm(True)
+    blind = one_arm(False)
+    res = HeteroBenchResult(
+        num_pods=n_pods,
+        num_shapes=len(hetero_candidate_shapes()),
+        cost_aware_scheduled=aware[0],
+        cost_aware_nodes=aware[1],
+        cost_aware_fleet_per_hour=aware[2],
+        cost_aware_time_s=round(aware[3], 3),
+        blind_scheduled=blind[0],
+        blind_nodes=blind[1],
+        blind_fleet_per_hour=blind[2],
+        blind_time_s=round(blind[3], 3),
+    )
+    return _finish(res, (aware[4], blind[4]), (aware[5],), aware[6])
+
+
+@dataclass
+class DefragBenchResult(_Defense):
+    """The `defrag` bench workload: a deliberately fragmented fleet
+    (half the nodes nearly full, half nearly empty, every pod owned by a
+    satisfied ReplicaSet) handed to the verified descheduler. Acceptance
+    is the consolidation contract itself: node count AND fleet $/h drop
+    strictly, fragmentation drops, and every replica stays bound."""
+
+    num_pods: int = 0
+    nodes_before: int = 0
+    nodes_after: int = 0
+    fleet_per_hour_before: float = 0.0
+    fleet_per_hour_after: float = 0.0
+    fragmentation_before: float = 0.0
+    fragmentation_after: float = 0.0
+    plans: int = 0
+    evictions: int = 0
+    aborts: int = 0
+    bound_after: int = 0
+    time_to_quiesce_s: float = 0.0
+
+    @property
+    def strictly_tighter(self) -> bool:
+        return (
+            self.nodes_after < self.nodes_before
+            and self.fleet_per_hour_after < self.fleet_per_hour_before
+            and self.bound_after == self.num_pods
+        )
+
+
+def run_defrag_benchmark(
+    n_heavy: int = 4,
+    n_light: int = 4,
+    heavy_pods: int = 6,
+    light_pods: int = 2,
+    node_cpu: int = 8,
+    cost_per_hour: float = 2.0,
+    timeout_s: float = 120.0,
+    period_s: float = 0.1,
+    device: DeviceLike = None,
+) -> DefragBenchResult:
+    """Fragment a fleet on purpose (heavy nodes at heavy_pods/node_cpu
+    utilization, light nodes at light_pods/node_cpu), pre-placed under a
+    satisfied ReplicaSet so evicted pods are recreated and re-packed by
+    the live scheduler, then time the descheduler's convergence. device:
+    None means the CUDA card (raises without one)."""
+    from ..api import objects as v1
+    from ..autoscaler import NodeGroup, NodeGroupCatalog, machine_shape
+    from ..controller.evictionbudget import EvictionBudget
+    from ..controller.replicaset import ReplicaSetController
+    from ..descheduler import Descheduler
+    from ..ops.encoding import LABEL_COST_PER_HOUR
+
+    dev = resolve_device(device)
+    metrics.reset()
+    server = APIServer()
+    sched = Scheduler(server, default_config(), device=dev)
+    group = NodeGroup(
+        name="defrag",
+        template=machine_shape(
+            cpu=str(node_cpu), memory="64Gi", pods=64,
+            cost_per_hour=cost_per_hour,
+        ),
+        max_size=n_heavy + n_light,
+    )
+    layout: List[tuple] = []  # (node, resident count)
+    for i in range(n_heavy):
+        layout.append((f"defrag-h{i}", heavy_pods))
+    for i in range(n_light):
+        layout.append((f"defrag-l{i}", light_pods))
+    for name, _cnt in layout:
+        server.create("nodes", group.make_node(name))
+    n_pods = sum(c for _n, c in layout)
+    rs = v1.ReplicaSet(
+        metadata=v1.ObjectMeta(name="defrag-rs"),
+        spec=v1.ReplicaSetSpec(
+            replicas=n_pods,
+            selector={"app": "defrag"},
+            template=v1.PodTemplateSpec(
+                metadata=v1.ObjectMeta(labels={"app": "defrag"}),
+                spec=v1.PodSpec(
+                    containers=[v1.Container(requests={"cpu": "1"})]
+                ),
+            ),
+        ),
+    )
+    server.create("replicasets", rs)
+    owners = [
+        v1.OwnerReference(
+            kind="ReplicaSet", name="defrag-rs", uid=rs.metadata.uid,
+            controller=True,
+        )
+    ]
+    i = 0
+    for name, cnt in layout:
+        for _ in range(cnt):
+            server.create(
+                "pods",
+                Pod(
+                    metadata=v1.ObjectMeta(
+                        name=f"defrag-p{i}",
+                        labels={"app": "defrag"},
+                        owner_references=list(owners),
+                    ),
+                    spec=v1.PodSpec(
+                        containers=[v1.Container(requests={"cpu": "1"})],
+                        node_name=name,
+                    ),
+                ),
+            )
+            i += 1
+
+    def fleet_cost() -> float:
+        nodes, _ = server.list("nodes")
+        total = 0.0
+        for n in nodes:
+            raw = n.metadata.labels.get(LABEL_COST_PER_HOUR)
+            total += float(raw) if raw else 0.0
+        return round(total, 3)
+
+    rsc = ReplicaSetController(server, resync_period=0.3)
+    budget = EvictionBudget(qps=200.0, burst=50)
+    desch = Descheduler(
+        server,
+        sched,
+        budget,
+        catalog=NodeGroupCatalog([group]),
+        period_s=period_s,
+        util_threshold=(heavy_pods - 1) / node_cpu,
+        max_nodes_per_plan=2,
+    )
+    sched.start()
+    rsc.start()
+    try:
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            if _count_scheduled(server) >= n_pods:
+                break
+            time.sleep(0.05)
+        frag_before = sched.fragmentation_score()
+        nodes_before = server.count("nodes")
+        cost_before = fleet_cost()
+        t0 = time.monotonic()
+        desch.start()
+
+        # quiesce: a planning pass can take seconds inside the kernel
+        # simulation with nothing externally "active", so stability of
+        # the observable state alone is not convergence. Converged =
+        # every replica bound, no latched plan, and >= 2 FURTHER planning
+        # passes since the state last moved all came back empty-handed.
+        def _reject_sum() -> float:
+            return sum(
+                v
+                for _n, l, v in metrics.snapshot_counters(
+                    "descheduler_plan_rejected_total"
+                )
+                if l.get("reason")
+                in ("no_candidates", "infeasible", "gang_strand")
+            )
+
+        state = None
+        rej_at_change = _reject_sum()
+        while time.monotonic() < deadline:
+            cur = (
+                server.count("nodes"),
+                _count_scheduled(server),
+                desch.executor.active,
+                metrics.counter("descheduler_plans_total"),
+                metrics.counter("descheduler_evictions_total"),
+            )
+            if cur != state:
+                state = cur
+                rej_at_change = _reject_sum()
+            elif (
+                not cur[2]
+                and cur[1] >= n_pods
+                and _reject_sum() - rej_at_change >= 2
+            ):
+                break
+            time.sleep(0.05)
+        elapsed = time.monotonic() - t0
+    finally:
+        desch.stop()
+        rsc.stop()
+        sched.stop()
+    aborts = sum(
+        v
+        for _n, _l, v in metrics.snapshot_counters(
+            "descheduler_plan_aborts_total"
+        )
+    )
+    res = DefragBenchResult(
+        num_pods=n_pods,
+        nodes_before=nodes_before,
+        nodes_after=server.count("nodes"),
+        fleet_per_hour_before=cost_before,
+        fleet_per_hour_after=fleet_cost(),
+        fragmentation_before=round(frag_before, 4),
+        fragmentation_after=round(sched.fragmentation_score(), 4),
+        plans=int(metrics.counter("descheduler_plans_total")),
+        evictions=int(metrics.counter("descheduler_evictions_total")),
+        aborts=int(aborts),
+        bound_after=_count_scheduled(server),
+        time_to_quiesce_s=round(elapsed, 3),
+    )
+    return _finish(res, (sched,))
 
 
 def _count_scheduled(server: APIServer) -> int:

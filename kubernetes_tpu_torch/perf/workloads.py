@@ -6,12 +6,6 @@ PreferredPodAffinity, TopologySpread, NodeAffinity, Gang) at 500/5000-node
 scales, with the reference's benchmark node shape (110 pods, 4 CPU, 32Gi —
 scheduler_test.go:52-68). Each workload yields (nodes, init_pods,
 measured_pod_factory).
-
-Copied from ``kubernetes_tpu/perf/workloads.py``: ``WorkloadConfig``,
-``build_workload`` and ``WORKLOADS``. The autoscaler and heterogeneity node
-catalogs (``autoscaler_candidate_shapes``, ``hetero_candidate_shapes``)
-stay with the reference until the port has an autoscaler (ROADMAP queue 1
-item 7).
 """
 
 from __future__ import annotations
@@ -247,6 +241,80 @@ def build_workload(
         return nodes, [], factory
 
     raise KeyError(f"unknown workload {cfg.name}")
+
+
+def autoscaler_candidate_shapes():
+    """The 4-shape NodeGroup catalog of the `autoscaler` bench workload
+    (bench.py): 1k pending 500m-cpu pods against an EMPTY cluster; the
+    what-if planner must mix shapes to bring them all bound. Max sizes
+    give the catalog ~4x the needed capacity so shape CHOICE (not a
+    capacity wall) is what's measured."""
+    from ..autoscaler import NodeGroup, machine_shape
+
+    return [
+        NodeGroup(
+            name="c4", template=machine_shape(cpu="4", memory="16Gi"),
+            max_size=64,
+        ),
+        NodeGroup(
+            name="c8", template=machine_shape(cpu="8", memory="32Gi"),
+            max_size=32,
+        ),
+        NodeGroup(
+            name="c16", template=machine_shape(cpu="16", memory="64Gi"),
+            max_size=16,
+        ),
+        NodeGroup(
+            name="c32", template=machine_shape(cpu="32", memory="128Gi"),
+            max_size=8,
+        ),
+    ]
+
+
+def hetero_candidate_shapes():
+    """The mixed-cost fleet of the `hetero` bench workload (bench.py):
+    two shape PAIRS where each pair is equally feasible for the pending
+    pods but priced very differently (the heterogeneity-column labels) —
+    so cheapest-feasible-shape packing is separable from capacity
+    effects. Catalog order puts the expensive shape first: a
+    cost-blind MostAllocated planner has no reason to prefer the cheap
+    twin."""
+    from ..autoscaler import NodeGroup, machine_shape
+
+    return [
+        NodeGroup(
+            name="premium8",
+            template=machine_shape(
+                cpu="8", memory="32Gi", cost_per_hour=8.0,
+                accelerator_class="tpu-v5p", energy_watts=700.0,
+            ),
+            max_size=48,
+        ),
+        NodeGroup(
+            name="spot8",
+            template=machine_shape(
+                cpu="8", memory="32Gi", cost_per_hour=1.6,
+                accelerator_class="tpu-v5e", energy_watts=300.0,
+            ),
+            max_size=48,
+        ),
+        NodeGroup(
+            name="premium16",
+            template=machine_shape(
+                cpu="16", memory="64Gi", cost_per_hour=15.0,
+                accelerator_class="tpu-v5p", energy_watts=1300.0,
+            ),
+            max_size=24,
+        ),
+        NodeGroup(
+            name="spot16",
+            template=machine_shape(
+                cpu="16", memory="64Gi", cost_per_hour=3.1,
+                accelerator_class="tpu-v5e", energy_watts=550.0,
+            ),
+            max_size=24,
+        ),
+    ]
 
 
 WORKLOADS: Dict[str, WorkloadConfig] = {

@@ -61,7 +61,7 @@ reference's, method for method; what changed is the device half:
   (``scheduler_device_down``) and every batch takes the host path. The
   single-device branch of the ladder probes the card once
   (``parallel/mesh._default_probe``); the reference's mesh shrink is
-  ROADMAP queue 1 item 8.
+  ROADMAP queue 1 item 6.
 * ``host_callback_binds=True`` launches ``ops/wavelattice.make_wave_kernel_cb``
   under a ``ops/hostcallback`` ticket: the fast index payload's split-phase
   copy goes to ``wavepath.HostCallbackDelivery``, whose thread delivers it
@@ -70,7 +70,7 @@ reference's, method for method; what changed is the device half:
 
 Not ported yet (construction raises ``NotImplementedError`` naming the
 ROADMAP queue 1 item): ``tune_policy=True`` and the policy gym's wave
-recorder (item 7), ``use_mesh`` over more than one device (item 8). The
+recorder (item 2), ``use_mesh`` over more than one device (item 6). The
 preemption what-if mask is ``ops/lattice.preempt_whatif`` on torch.
 
 The reference's design notes follow.
@@ -401,9 +401,9 @@ def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
     """(setting, ROADMAP queue 1 item) pairs this port does not run yet."""
     out = []
     if cfg.tune_policy:
-        out.append(("tune_policy=True (the policy gym)", 7))
+        out.append(("tune_policy=True (the policy gym)", 2))
     if cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        out.append(("use_mesh over more than one device", 8))
+        out.append(("use_mesh over more than one device", 6))
     return out
 
 
@@ -745,7 +745,7 @@ class Scheduler:
         """informers → WaitForCacheSync → presized encoder → pipeline
         depth. After this the device snapshot mirrors the synced cluster;
         nothing schedules yet. (The reference's mesh sharding is ROADMAP
-        queue 1 item 8; its XLA scatter-program warm-up has no counterpart
+        queue 1 item 6; its XLA scatter-program warm-up has no counterpart
         in eager torch.)"""
         self.informer_factory.start()
         self.informer_factory.wait_for_cache_sync()
@@ -2965,7 +2965,7 @@ class Scheduler:
         when the card still answers a probe, or — the probe fails, or
         losses keep repeating — latch the device path off and serve from
         the host path. (The reference's middle rung, shrinking a mesh to
-        its surviving devices, is ROADMAP queue 1 item 8.)"""
+        its surviving devices, is ROADMAP queue 1 item 6.)"""
         self._consecutive_device_loss += 1
         metrics.set_gauge(
             "scheduler_device_consecutive_loss",

@@ -27,7 +27,7 @@ ptab, weights, noise)`` returns ``(new_snap, res, copies)`` and
 reference passes a PRNG key. ``corrupt_device_rows`` reads one field of
 the pinned generation, mutates the rows on the host and installs the
 result as a new device tensor through ``swap_live_snapshot``; the mesh
-placement of the reference's version waits for ROADMAP queue 1 item 8.
+placement of the reference's version waits for ROADMAP queue 1 item 6.
 """
 
 from __future__ import annotations

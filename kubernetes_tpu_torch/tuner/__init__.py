@@ -5,7 +5,7 @@ persisted ``ScorePolicy`` object the ``Scheduler`` adopts at promotion and
 ``api/serialization.ensure_late_registration`` registers.
 ``scoring.fragmentation_score`` is copied for
 ``Scheduler.fragmentation_score``. The gym itself (controller, waves, the
-replay half of scoring, candidates) is ROADMAP queue 1 item 7.
+replay half of scoring, candidates) is ROADMAP queue 1 item 2.
 """
 
 from .policy import (  # noqa: F401  (the import-light surface)

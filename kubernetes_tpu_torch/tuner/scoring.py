@@ -3,7 +3,7 @@
 ``fragmentation_score`` is copied from ``kubernetes_tpu/tuner/scoring.py``
 for ``Scheduler.fragmentation_score`` (the live-fleet gauge). The replay
 half of that module — overlays, candidate replays, wave outcomes — runs
-the serial lattice and is ROADMAP queue 1 item 7.
+the serial lattice and is ROADMAP queue 1 item 2.
 """
 
 from __future__ import annotations

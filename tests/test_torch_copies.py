@@ -7,13 +7,11 @@ statement (at any depth, with all of its lines) from both files and
 requires the rest to be equal, character for character — comments and
 docstrings included. A copy that differs in anything else fails.
 
-Three kinds of copy:
+Two kinds of copy:
 * whole modules (``WHOLE``);
-* modules copied except for named definitions that wait for a later slice
-  (``PARTIAL``: the module docstring may say so, every other top-level
-  statement is equal and in the reference's order);
 * single definitions copied into a module the port otherwise rewrites
-  (``DEFINITIONS``: functions, classes or methods, each equal).
+  (``DEFINITIONS``: functions, classes, methods or module constants, each
+  equal).
 """
 
 import ast
@@ -85,12 +83,27 @@ WHOLE = [
     # the data-plane defense slice
     "scheduler/antientropy.py",
     "ops/hostcallback.py",
+    # the capacity-planning slice (autoscaler and descheduler)
+    "perf/workloads.py",
+    "autoscaler/__init__.py",
+    "autoscaler/nodegroups.py",
+    "autoscaler/controller.py",
+    "descheduler/__init__.py",
+    "descheduler/planner.py",
+    "descheduler/executor.py",
+    "descheduler/controller.py",
+    "controller/evictionbudget.py",
+    "controller/nodelifecycle.py",
+    "controller/replicaset.py",
+    "kubemark/__init__.py",
+    "kubemark/hollow_node.py",
+    "kubelet/__init__.py",
+    "kubelet/kubelet.py",
+    "kubelet/runtime.py",
+    "proxy/__init__.py",
+    "proxy/proxy.py",
+    "proxy/userspace.py",
 ]
-
-# module -> the reference's top-level definitions left out of the copy
-PARTIAL = {
-    "perf/workloads.py": {"autoscaler_candidate_shapes", "hetero_candidate_shapes"},
-}
 
 # module -> definitions copied into the port's own module of that name
 DEFINITIONS = {
@@ -106,6 +119,19 @@ DEFINITIONS = {
         "SnapshotEncoder.update_pdb_blocked",
         "SnapshotEncoder.swap_live_snapshot",
         "SnapshotEncoder.ROW_FIELDS",
+        "SnapshotEncoder.free_row_indices",
+    ],
+    "autoscaler/planner.py": [
+        "HIST_SIMULATION",
+        "COUNTER_SIMULATIONS",
+        "pack_weights",
+        "VIRTUAL_BIAS_TAINT",
+        "SimResult",
+        "ScaleUpPlan",
+        "plan_scale_up",
+        "DrainVerdict",
+        "simulate_drain_set",
+        "simulate_drain",
     ],
     "ops/lattice.py": ["_BUILTIN_PROFILES", "register_weight_profile"],
     "tuner/scoring.py": ["fragmentation_score"],
@@ -154,19 +180,6 @@ class _Module:
             scope = getattr(node, "body", [])
         return node
 
-    def top_level(self):
-        """[(name or None, node)] without imports and the docstring."""
-        body = self.tree.body
-        if body and isinstance(body[0], ast.Expr) and isinstance(
-            getattr(body[0], "value", None), ast.Constant
-        ):
-            body = body[1:]
-        return [
-            (_name(n), n)
-            for n in body
-            if not isinstance(n, (ast.Import, ast.ImportFrom))
-        ]
-
 
 def _name(node):
     if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
@@ -193,19 +206,6 @@ def test_whole_copy_differs_only_in_import_lines(rel):
     assert a == b, f"{rel}: {_first_difference(a, b)}"
 
 
-@pytest.mark.parametrize("rel", sorted(PARTIAL))
-def test_partial_copy_differs_only_in_left_out_definitions(rel):
-    ref, port = _Module(REF / rel), _Module(PORT / rel)
-    left_out = PARTIAL[rel]
-    want = [(n, ref.text(node)) for n, node in ref.top_level() if n not in left_out]
-    got = [(n, port.text(node)) for n, node in port.top_level()]
-    assert [n for n, _ in got] == [n for n, _ in want], rel
-    for (name, a), (_, b) in zip(want, got):
-        assert a == b, f"{rel}:{name}: {_first_difference(a, b)}"
-    names = {n for n, _ in ref.top_level()}
-    assert left_out <= names, f"{rel}: unknown left-out names"
-
-
 @pytest.mark.parametrize(
     "rel,dotted",
     [(rel, d) for rel, ds in sorted(DEFINITIONS.items()) for d in ds],
@@ -218,7 +218,7 @@ def test_copied_definition_is_unchanged(rel, dotted):
 
 def test_every_module_under_a_copied_directory_is_listed():
     """A module copied later must join a list here: every port module in
-    the copied directories is WHOLE, PARTIAL, or a known port."""
+    the copied directories is WHOLE or a known port."""
     ported = {
         "scheduler/scheduler.py",
         "scheduler/wavepath.py",
@@ -227,10 +227,12 @@ def test_every_module_under_a_copied_directory_is_listed():
         "perf/harness.py",
         "testing/__init__.py",
         "testing/device_faults.py",
+        "autoscaler/planner.py",
     }
-    listed = set(WHOLE) | set(PARTIAL) | ported
+    listed = set(WHOLE) | ported
     for d in ("api", "client", "runtime", "utils", "controller", "scheduler",
-              "tuner", "perf", "testing"):
+              "tuner", "perf", "testing", "autoscaler", "descheduler",
+              "kubelet", "kubemark", "proxy"):
         for p in sorted((PORT / d).rglob("*.py")):
             rel = str(p.relative_to(PORT))
             assert rel in listed, f"{rel} is neither a listed copy nor a port"

@@ -444,3 +444,75 @@ def test_fetch_device_rows_on_the_card_matches_the_cpu():
     for field in a:
         assert a[field].dtype == b[field].dtype
         np.testing.assert_array_equal(a[field], b[field], err_msg=field)
+
+
+def _whatif_request():
+    from kubernetes_tpu_torch.api import objects as o
+    from kubernetes_tpu_torch.perf.workloads import (
+        WorkloadConfig,
+        autoscaler_candidate_shapes,
+        build_workload,
+    )
+
+    virtual = [
+        g.make_node(f"whatif.{g.name}.{i}")
+        for g in autoscaler_candidate_shapes() for i in range(4)
+    ]
+    _n, _i, factory = build_workload(WorkloadConfig("SchedulingPodAffinity", 500, 400, 1))
+    pods = [factory(i) for i in range(56)] + [
+        o.Pod(
+            metadata=o.ObjectMeta(name=f"big-{i}"),
+            spec=o.PodSpec(containers=[o.Container(requests={"cpu": "12"})]),
+        )
+        for i in range(8)
+    ]
+    return virtual, ["node-3", "node-250", "node-499"], pods
+
+
+@pytest.mark.cuda
+def test_whatif_overlay_and_pass_on_the_card_match_the_cpu():
+    """The what-if overlay (16 virtual nodes, 3 masked rows) of a 500-node
+    snapshot on the card and on the CPU: every field equal, the card's
+    live generation bit-identical afterwards and sharing no storage with
+    the overlay; then one 64-pod what-if pass on both with the same tie
+    noise: chosen, fallback and the virtual rows equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kubernetes_tpu_torch.autoscaler import WhatIfSimulator
+    from kubernetes_tpu_torch.scheduler.cache.cache import SchedulerCache
+
+    virtual, masked, pods = _whatif_request()
+    caches = [
+        SchedulerCache(encoder=_audit_cluster(d))
+        for d in (torch.device("cuda", 0), torch.device("cpu"))
+    ]
+    card = caches[0].encoder
+    live = card._device
+    before = [t.clone() for t in live]
+    rows = [card.row_of(m) for m in masked]
+    (snap, vrows), (cpu_snap, cpu_rows) = (
+        c.encoder.whatif_overlay(virtual, rows) for c in caches
+    )
+    assert vrows == cpu_rows and len(vrows) == len(virtual)
+    for f in snap._fields:
+        assert getattr(snap, f).is_cuda, f
+        assert torch.equal(getattr(snap, f).cpu(), getattr(cpu_snap, f)), f
+    assert card._device is live
+    assert all(torch.equal(b, t) for b, t in zip(before, live))
+    ptrs = {t.untyped_storage().data_ptr() for t in live}
+    assert not any(t.untyped_storage().data_ptr() in ptrs for t in snap)
+
+    def noise():
+        gen = torch.Generator().manual_seed(3)
+        return lambda p, n: torch.rand((p, n), generator=gen)
+
+    sims = [
+        WhatIfSimulator(c, noise=lambda p, n, d=c.encoder.device, f=noise(): f(p, n).to(d))
+        for c in caches
+    ]
+    got, want = (s.simulate(pods, virtual, mask_nodes=masked) for s in sims)
+    np.testing.assert_array_equal(got.chosen, want.chosen)
+    np.testing.assert_array_equal(got.fallback, want.fallback)
+    assert got.virtual_rows == want.virtual_rows
+    assert set(got.chosen.tolist()) & set(got.virtual_rows)
+    assert all(torch.equal(b, t) for b, t in zip(before, live))

@@ -12,7 +12,7 @@ injector (testing/device_faults.py).
     place, and nodes are created as API objects. The reference's two mesh
     scenarios (``test_partial_device_loss_shrinks_mesh_and_reshards``,
     ``test_single_survivor_shrink_pins_uploads_to_survivor``) wait for the
-    multi-device slice (ROADMAP queue 1 item 8). The two reference tests
+    multi-device slice (ROADMAP queue 1 item 6). The two reference tests
     marked slow keep the mark.
 (b) Parity with the reference on the same inputs, all exact:
     ``fetch_device_rows`` field by field; ``audit_once()`` reports after

@@ -19,9 +19,14 @@ import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any import of jax now raises ImportError
 import kubernetes_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
-# the data-plane defense slice's modules are among them
+# the data-plane defense slice's and the capacity-planning slice's
+# modules are among them
 for new in ("parallel.sharded", "parallel.mesh", "ops.hostcallback",
-            "scheduler.antientropy", "testing.device_faults"):
+            "scheduler.antientropy", "testing.device_faults",
+            "autoscaler", "autoscaler.planner", "autoscaler.controller",
+            "descheduler", "descheduler.planner", "descheduler.executor",
+            "kubelet", "kubelet.kubelet", "kubemark", "kubemark.hollow_node",
+            "proxy", "controller.nodelifecycle", "controller.replicaset"):
     assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
@@ -53,9 +58,11 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     # every module walked: the wave-path slice's 24, the Scheduler
     # slice's copies and ports (API server, client, runtime, queue,
     # framework and plugins, cache, scheduler, harness, tuner surface)
-    # and the data-plane defense slice's (parallel, the host-callback
-    # registry, the auditor, the fault injector)
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 82
+    # the data-plane defense slice's (parallel, the host-callback
+    # registry, the auditor, the fault injector) and the capacity-planning
+    # slice's (autoscaler, descheduler, kubelet, kubemark, proxy and the
+    # controllers they need)
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 101
 
 
 def test_chip_smoke_names_no_reference_module():
@@ -79,7 +86,8 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
         "from kubernetes_tpu_torch.ops.encoding import SnapshotEncoder\n"
         "from kubernetes_tpu_torch.client.apiserver import APIServer\n"
         "from kubernetes_tpu_torch.perf.harness import (\n"
-        "    default_config, run_benchmark, run_latency_benchmark)\n"
+        "    default_config, run_autoscaler_benchmark, run_benchmark,\n"
+        "    run_defrag_benchmark, run_hetero_benchmark, run_latency_benchmark)\n"
         "from kubernetes_tpu_torch.perf.workloads import WorkloadConfig\n"
         "from kubernetes_tpu_torch.scheduler import Scheduler\n"
         "assert not torch.cuda.is_available()\n"
@@ -90,7 +98,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
         "def scheduler(): return Scheduler(APIServer(), default_config())\n"
         "def bench(): return run_benchmark(wl)\n"
         "def latency(): return run_latency_benchmark(wl, 10.0, n_pods=1)\n"
-        "for call in (resolve_device, SnapshotEncoder, scheduler, bench, latency):\n"
+        "def autoscaler(): return run_autoscaler_benchmark(n_pods=1)\n"
+        "def hetero(): return run_hetero_benchmark(n_pods=1)\n"
+        "def defrag(): return run_defrag_benchmark()\n"
+        "for call in (resolve_device, SnapshotEncoder, scheduler, bench, latency,\n"
+        "             autoscaler, hetero, defrag):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
