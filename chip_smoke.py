@@ -91,6 +91,14 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    both with the same tie noise, chosen and fallback equal. Prints the
    overlay build p50, the pass's wall, ms per pod step, and a profiled
    pass's device busy time and launches.
+12b. [gym] (on the same two caches): one tuner/scoring.build_overlay of
+   128 of SchedulingPodAffinity's pods on each, the host columns equal;
+   four arms (the incumbent, `pack`, the TOPSIS arm, one perturbation)
+   replayed on both with the same tie noise: chosen rows and every
+   WaveOutcome field equal, the card's live generation bit-identical
+   afterwards. Prints each arm's wall and ms per pod step on the card, a
+   profiled arm's device busy time and launches, and one whole
+   PolicyTuner pass (every arm it assembles) on the card.
 13. [autoscaler]: run_autoscaler_benchmark(n_pods=1000) (bench.py's
    Autoscaler/1k-pending-4-shapes). Requires 1000/1000 bound (checked
    from the API server, each pod bound once), every node from the
@@ -105,6 +113,21 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    hard-pair path): the gate of phase 5 (all bound, bindings checked, no
    two measured pods on one node, 0 guard trips, K1 launched); pods/s and
    the waves of every launched batch.
+16b. [tuner]: run_tuner_benchmark() at the reference's defaults (8
+   nodes, 4 rounds, the cost flip, timeout 120 s): every burst bound, no
+   promotion before the flip, a converged promotion with a cost weight,
+   0 guard trips, drift, rebuilds and device-down; baseline and tuner-on
+   pods/s, overhead, time to converge, gym passes, pass p50/p99.
+16c. [cmd]: cmd/scheduler.run(server, KubeSchedulerConfiguration(
+   tune_policy=True), block=False) with no device (the card), from the
+   main thread (the cache debugger's SIGUSR2 handler), its health
+   endpoints on a free port (healthz_port=0 would serve none), then
+   SchedulingPodAffinity/5000's nodes, initial and measured pods created
+   through the server: every pod bound once with requested <=
+   allocatable, /healthz, /readyz and /metrics 200, the debugger's dump
+   with its policy-gym section, a gym pass after the burst, K1 launched,
+   the defense counters 0; pods/s with the gym on, gym passes, pass p50.
+   The tuner, then the Scheduler and its Cacher, are stopped.
 17. [guards] and [device-loss] on a 500-node cluster (SchedulingPodAffinity's
    nodes, 100 pre-bound pods; the host path binds a quarantined batch
    in seconds there) with the fault injector (testing/device_faults.py):
@@ -114,13 +137,13 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    launch (wave or serial) lost latches after K losses. Every pod bound
    exactly once, none oversubscribed, no assume leaked.
 
-The Scheduler phases (5-9, 11, 13-16) print the auditor's passes, its skips by
+The Scheduler phases (5-9, 11, 13-16c) print the auditor's passes, its skips by
 reason, drift rows, rebuilds and scheduler_device_down, and fail unless
 the last three are 0. Every phase but the fault phases fails on any ERROR
 record the port logs; a fault phase fails on any ERROR it did not cause.
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 5, 6, 7, 8, 9, 11 and 12-16) and read just after. The last lines are the
+2, 5, 6, 7, 8, 9, 11 and 12-16c) and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
@@ -129,7 +152,9 @@ preemption, standby and host-callback runs (``launches_serial``,
 what-if pass (``launches_whatif``: the serial lattice, no Pallas kernel
 on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
 (``launches_autoscaler``, ``launches_hetero``, ``launches_defrag``,
-``launches_hardpair``),
+``launches_hardpair``), the gym's replays, the tuner bench and the
+process entry (``launches_gym``, ``launches_tuner``: the serial lattice,
+0; ``launches_cmd``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -1457,26 +1482,15 @@ def whatif_request(factory, n_pods: int = 256, per_group: int = 16, n_big: int =
     return virtual, masked, pods
 
 
-def phase_whatif(server, device, card: str, errors: ErrorLog) -> dict:
-    """[whatif] on the [scheduler] phase's cluster (the API server's 5,000
-    nodes and 6,000 bound pods; n_cap 8192, so 3,192 rows are free),
-    encoded into a SchedulerCache on the card and one on the CPU. One
-    overlay of 64 virtual nodes (16 of each autoscaler bench shape) and 16
-    masked rows on both: every field equal, the card's live generation the
-    same object and bit-identical afterwards (compared on the card), no
-    overlay tensor sharing its storage. Then one WhatIfSimulator.simulate
-    of 256 pending pods over that request on both, with the same tie
-    noise: chosen and fallback equal. Times the overlay build (p50 of 20)
-    and the card's pass; profiles one more pass (device busy, launches)."""
-    from kubernetes_tpu_torch.autoscaler import WhatIfSimulator
+def cluster_caches(server, device) -> dict:
+    """The API server's nodes and bound pods encoded into a SchedulerCache
+    on the card and one on the CPU ({"card": ..., "cpu": ...}), each
+    flushed, presized to the cluster."""
     from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
-    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
     from kubernetes_tpu_torch.scheduler.cache.cache import SchedulerCache
 
-    errors.check("before whatif")
     nodes = server.list("nodes")[0]
     pods = [p for p in server.list("pods")[0] if p.spec.node_name]
-    _n, _i, factory = build_workload(WORKLOADS["SchedulingPodAffinity/5000"])
 
     def build(dev):
         enc = SnapshotEncoder(EncodingConfig.for_cluster(len(nodes)), device=dev)
@@ -1489,7 +1503,28 @@ def phase_whatif(server, device, card: str, errors: ErrorLog) -> dict:
             enc.flush()
         return cache
 
-    caches = {"card": build(device), "cpu": build(torch.device("cpu"))}
+    return {"card": build(device), "cpu": build(torch.device("cpu"))}
+
+
+def phase_whatif(server, device, card: str, errors: ErrorLog, caches: dict) -> dict:
+    """[whatif] on the [scheduler] phase's cluster (the API server's 5,000
+    nodes and 6,000 bound pods; n_cap 8192, so 3,192 rows are free),
+    encoded into a SchedulerCache on the card and one on the CPU. One
+    overlay of 64 virtual nodes (16 of each autoscaler bench shape) and 16
+    masked rows on both: every field equal, the card's live generation the
+    same object and bit-identical afterwards (compared on the card), no
+    overlay tensor sharing its storage. Then one WhatIfSimulator.simulate
+    of 256 pending pods over that request on both, with the same tie
+    noise: chosen and fallback equal. Times the overlay build (p50 of 20)
+    and the card's pass; profiles one more pass (device busy, launches).
+    `caches`: cluster_caches(server, device)."""
+    from kubernetes_tpu_torch.autoscaler import WhatIfSimulator
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+
+    errors.check("before whatif")
+    nodes = server.list("nodes")[0]
+    pods = [p for p in server.list("pods")[0] if p.spec.node_name]
+    _n, _i, factory = build_workload(WORKLOADS["SchedulingPodAffinity/5000"])
     enc = caches["card"].encoder
     n_cap = enc.cfg.n_cap
     n_free = len(enc.free_row_indices())
@@ -1576,6 +1611,298 @@ def phase_whatif(server, device, card: str, errors: ErrorLog) -> dict:
         f"device busy {busy}, {prof['launches']} launches; card {card}")
     errors.check("whatif")
     return out
+
+
+def phase_tuner(device, card: str, errors: ErrorLog) -> dict:
+    """[tuner] run_tuner_benchmark() at the reference's defaults (8 nodes,
+    4 rounds, the cost flip, timeout 120 s) on the card: the serial path,
+    the gym replaying every recorded wave in the background. Fails unless
+    every burst is bound, nothing promotes before the flip, the gym
+    converges on a vector with a cost weight, the defense counters are 0
+    (the harness raises otherwise) and no ERROR is logged. K1 is not on
+    this path (serial lattice)."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_tuner_benchmark
+
+    errors.check("before tuner")
+    zero_k(fit_kernels)
+    res = run_tuner_benchmark(device=device)
+    k1, k2 = count_k(fit_kernels)
+    log(f"[tuner] {res.num_nodes} nodes, {res.pre_flip_rounds} full-width rounds: "
+        f"baseline {res.baseline_pods_per_s} pods/s, tuner on "
+        f"{res.tuner_on_pods_per_s} pods/s (overhead {res.overhead_pct} %); "
+        f"{res.bursts_bound}/{res.bursts} bursts bound; pre-flip promotions "
+        f"{res.pre_flip_promotions}; converged {res.converged} in "
+        f"{res.time_to_converge_s} s on {res.promoted_policy!r} (cost weight "
+        f"{res.promoted_cost_weight}); {res.promotions} promotions, "
+        f"{res.waves_recorded} waves recorded, {res.gym_passes} gym passes, pass "
+        f"p50/p99 {res.gym_pass_p50_ms}/{res.gym_pass_p99_ms} ms; guard trips "
+        f"{res.guard_trips}; K1 launches {k1}, K2 launches {k2}; card {card}")
+    errors.check("tuner")
+    defense_report("tuner", card, res=res)
+    if res.bursts_bound != res.bursts:
+        raise AssertionError(f"[tuner] {res.bursts - res.bursts_bound} bursts left pods unbound")
+    if res.pre_flip_promotions:
+        raise AssertionError("[tuner] a policy promoted before the flip")
+    if not res.converged or res.promoted_cost_weight <= 0:
+        raise AssertionError(f"[tuner] no cost-aware promotion ({res.promoted_policy!r})")
+    return {"res": res, "k1": k1, "k2": k2}
+
+
+class GymHost:
+    """Just enough scheduler for one PolicyTuner pass over a cache: the
+    cache, the default weights and configuration, a no-op policy swap."""
+
+    def __init__(self, cache):
+        from kubernetes_tpu_torch.ops.lattice import DEFAULT_WEIGHTS
+        from kubernetes_tpu_torch.scheduler import KubeSchedulerConfiguration
+
+        self.cache = cache
+        self.cfg = KubeSchedulerConfiguration()
+        self._weights = DEFAULT_WEIGHTS.copy()
+        self._score_policy_name = "default"
+        self._ha_identity = "gym-0"
+        self.wave_recorder = None
+
+    def set_score_policy(self, policy):
+        pass
+
+
+def phase_gym(caches: dict, device, card: str, errors: ErrorLog) -> dict:
+    """[gym] on the [scheduler] phase's cluster (caches: cluster_caches of
+    its API server, 5,000 nodes and 6,000 bound pods, on the card and on
+    the CPU). One build_overlay of 128 of SchedulingPodAffinity's pods on
+    each: the host columns equal. Then four arms (the incumbent, `pack`,
+    the TOPSIS arm, one perturbation) replayed on both with the same tie
+    noise: every arm's chosen rows and WaveOutcome equal, and the card's
+    live generation the same object and bit-identical afterwards
+    (compared on the card). Times each arm on the card, profiles one, and
+    times one whole PolicyTuner pass (every arm the tuner assembles) on
+    the card."""
+    import dataclasses
+
+    from kubernetes_tpu_torch.ops.lattice import DEFAULT_WEIGHTS, WEIGHT_PROFILES
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.tuner import candidates as cand_gen
+    from kubernetes_tpu_torch.tuner.controller import PolicyTuner
+    from kubernetes_tpu_torch.tuner.policy import COUNTER_GYM_CANDIDATES
+    from kubernetes_tpu_torch.tuner.scoring import (
+        build_overlay, replay_candidate, score_assignment)
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    errors.check("before gym")
+    _n, _i, factory = build_workload(WORKLOADS["SchedulingPodAffinity/5000"])
+    pods = [factory(400000 + i) for i in range(128)]
+    enc = caches["card"].encoder
+    live = enc._device
+    before = [t.clone() for t in live]
+
+    def check_live(what):
+        if enc._device is not live or any(not torch.equal(b, t) for b, t in zip(before, live)):
+            raise AssertionError(f"[gym] {what} changed the live generation")
+
+    ovs = {where: build_overlay(cache, pods) for where, cache in caches.items()}
+    ov, cpu_ov = ovs["card"], ovs["cpu"]
+    for f in ("pod_valid", "req", "node_valid", "free0", "alloc", "cost_milli",
+              "energy_milli", "accel_class"):
+        if not np.array_equal(getattr(ov, f), getattr(cpu_ov, f)):
+            raise AssertionError(f"[gym] overlay column {f}: card != CPU")
+    if ov.row_names != cpu_ov.row_names or not ov.pod_valid.any():
+        raise AssertionError("[gym] overlay rows differ or no pod encoded")
+    p, n = ov.req.shape[0], ov.node_valid.shape[0]
+    noise = torch.rand((p, n), generator=torch.Generator().manual_seed(7))
+    arms = [
+        ("incumbent", DEFAULT_WEIGHTS.copy()),
+        ("pack", WEIGHT_PROFILES["pack"].copy()),
+        ("topsis", cand_gen.topsis_candidates(
+            ov.alloc - ov.free0, ov.alloc, ov.node_valid, ov.cost_milli,
+            ov.energy_milli)[0]),
+        ("perturb", cand_gen.perturbation_candidates(
+            DEFAULT_WEIGHTS, np.random.default_rng(7), 1)[0]),
+    ]
+    walls, placed, cpu_s = {}, {}, 0.0
+    for name, vec in arms:
+        got = {}
+        for where, o in (("card", ov), ("cpu", cpu_ov)):
+            t0 = time.perf_counter()
+            got[where] = replay_candidate(o, vec, noise.to(o.snap.valid.device), 1.0)
+            if where == "card":
+                walls[name] = time.perf_counter() - t0
+            else:
+                cpu_s += time.perf_counter() - t0
+        if not np.array_equal(got["card"], got["cpu"]):
+            bad = int((got["card"] != got["cpu"]).sum())
+            raise AssertionError(f"[gym] arm {name}: chosen differs at {bad} pods (card vs CPU)")
+        a, b = score_assignment(ov, got["card"]), score_assignment(cpu_ov, got["cpu"])
+        if dataclasses.astuple(a) != dataclasses.astuple(b):
+            raise AssertionError(f"[gym] arm {name}: outcome {a} != CPU {b}")
+        placed[name] = a.placed
+    check_live("the replays")
+    card_noise = noise.to(device)
+    try:
+        prof = profile_device(
+            f"gym arm, {p} pods over {n} rows",
+            lambda: replay_candidate(ov, DEFAULT_WEIGHTS, card_noise, 1.0),
+        )
+    except (RuntimeError, AttributeError) as e:  # measurement only
+        log(f"[profile] gym arm device time not measured: {e}")
+        prof = {"wall_ms": None, "busy_ms": None, "launches": None}
+    # one whole gym pass on the card: every arm the tuner assembles
+    tuner = PolicyTuner(GymHost(caches["card"]), None, seed=7)
+    tuner.ring.record_wave(pods, DEFAULT_WEIGHTS, [""] * len(pods))
+
+    def n_arms():
+        return sum(v for _n, _l, v in metrics.snapshot_counters(COUNTER_GYM_CANDIDATES))
+
+    arms0 = n_arms()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tuner.tick()
+    torch.cuda.synchronize()
+    pass_s = time.perf_counter() - t0
+    pass_arms = int(n_arms() - arms0)
+    check_live("the gym pass")
+    steps = pass_arms * p
+    out = {
+        "arm_s": walls, "cpu_arms_s": cpu_s, "pass_s": pass_s, "pass_arms": pass_arms,
+        "ms_per_step": pass_s * 1e3 / max(steps, 1), "pad": p, **prof,
+        "pass_launches_est": (
+            None if prof["launches"] is None else prof["launches"] * pass_arms
+        ),
+    }
+    busy = "not measured" if prof["busy_ms"] is None else f"{prof['busy_ms']:.3f} ms"
+    log(f"[gym] {n} rows, {p} pods (overlay host columns equal to the CPU's): arms "
+        + ", ".join(f"{k} {walls[k]:.3f} s ({walls[k] * 1e3 / p:.3f} ms per pod step, "
+                    f"{placed[k]} placed)" for k, _v in arms)
+        + f"; the CPU's four arms {cpu_s:.3f} s; chosen rows and outcomes equal "
+        f"card vs CPU, the live generation "
+        f"untouched; profiled arm: wall {prof['wall_ms'] and round(prof['wall_ms'], 2)} "
+        f"ms, device busy {busy}, {prof['launches']} launches; one PolicyTuner pass: "
+        f"{pass_arms} arms in {pass_s:.3f} s ({out['ms_per_step']:.3f} ms per pod "
+        f"step, ~{out['pass_launches_est']} launches); card {card}")
+    errors.check("gym")
+    return out
+
+
+def phase_cmd(device, card: str, errors: ErrorLog,
+              workload: str = "SchedulingPodAffinity/5000") -> dict:
+    """[cmd] the scheduler process's entry point on the card:
+    cmd.scheduler.run(server, KubeSchedulerConfiguration(tune_policy=True),
+    block=False) from the main thread (the cache debugger's SIGUSR2
+    handler needs it), its health endpoints on a free port, then
+    SchedulingPodAffinity/5000's nodes, initial pods and measured pods
+    created through the server. Fails unless every pod is bound once with
+    requested <= allocatable (from the API server's bindings), /healthz,
+    /readyz and /metrics answer 200, the cache debugger's dump holds the
+    policy-gym section, the gym made a pass after the burst (on the
+    5,000-node snapshot), K1 was launched, the defense counters are 0 and
+    no ERROR is logged. Tears down the tuner, then sched.stop(), which
+    stops the run()-owned Cacher."""
+    import socket
+    import urllib.request
+
+    from kubernetes_tpu_torch.cmd import scheduler as cmd_scheduler
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.scheduler import KubeSchedulerConfiguration
+    from kubernetes_tpu_torch.scheduler.cache.debugger import CacheDebugger
+    from kubernetes_tpu_torch.tuner.policy import COUNTER_GYM_PASSES, HIST_GYM_PASS_SECONDS
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    errors.check("before cmd")
+    wl = WORKLOADS[workload]
+    nodes, init, factory = build_workload(wl)
+    server = ledger_server()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    metrics.reset()
+    zero_k(fit_kernels)
+    sched = cmd_scheduler.run(
+        server, KubeSchedulerConfiguration(tune_policy=True), healthz_port=port,
+        block=False,
+    )
+    tuner = sched._tuner
+    try:
+        if sched.device.type != device.type or tuner is None:
+            raise AssertionError("[cmd] run() did not start on the card with the gym")
+
+        def bound():
+            return server.count("pods", lambda p: bool(p.spec.node_name))
+
+        def wait_bound(count, what):
+            deadline = time.monotonic() + 300
+            while bound() < count:
+                if time.monotonic() > deadline:
+                    raise AssertionError(f"[cmd] {bound()}/{count} bound ({what})")
+                time.sleep(0.05)
+
+        t0 = time.monotonic()
+        for nd in nodes:
+            server.create("nodes", nd)
+        for p in init:
+            server.create("pods", p)
+        wait_bound(len(init), "initial pods")
+        setup_s = time.monotonic() - t0
+        measured = [factory(i) for i in range(wl.num_measured_pods)]
+        t0 = time.monotonic()
+        for p in measured:
+            server.create("pods", p)
+        wait_bound(len(init) + len(measured), "measured pods")
+        burst_s = time.monotonic() - t0
+        passes_at_bound = metrics.counter(COUNTER_GYM_PASSES)
+        deadline = time.monotonic() + 120
+        while metrics.counter(COUNTER_GYM_PASSES) <= passes_at_bound:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"[cmd] the gym made no pass on the {len(nodes)}-node snapshot")
+            time.sleep(0.1)
+        codes = {}
+        for path in ("/healthz", "/readyz", "/metrics"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+                codes[path] = r.status
+        dump = CacheDebugger(sched).dump()
+    finally:
+        if tuner is not None:
+            # a pass in flight finishes before the Scheduler stops
+            thread = tuner._thread
+            tuner.stop()
+            if thread is not None:
+                thread.join(timeout=120)
+        sched.stop()
+    k1, k2 = count_k(fit_kernels)
+    passes = int(metrics.counter(COUNTER_GYM_PASSES))
+    h = metrics.histogram(HIST_GYM_PASS_SECONDS)
+    p50, p99 = h.quantiles([0.5, 0.99]) if h is not None else (0.0, 0.0)
+    waves = len(tuner.ring)
+    rate = len(measured) / burst_s
+    log(f"[cmd] cmd.scheduler.run(tune_policy=True) on the card, "
+        f"{workload} created through the server: {len(init)} "
+        f"initial pods bound in {setup_s:.3f} s (nodes included), "
+        f"{len(measured)} measured pods in {burst_s:.3f} s = {rate:.1f} pods/s with "
+        f"the gym on; {passes} gym passes, pass p50/p99 {p50 * 1e3:.1f}/"
+        f"{p99 * 1e3:.1f} ms; {waves} waves in the ring; HTTP {codes}; K1 launches "
+        f"{k1}, K2 launches {k2}; card {card}")
+    errors.check("cmd")
+    defense_report("cmd", card, sched=sched)
+    trips = sum(v for _n, _l, v in metrics.snapshot_counters("kernel_guard_trips_total"))
+    if trips:
+        raise AssertionError(f"[cmd] {trips} kernel guard trips")
+    if any(c != 200 for c in codes.values()):
+        raise AssertionError(f"[cmd] health endpoints answered {codes}")
+    if "Dump of policy-gym (self-tuning scheduler) state:" not in dump:
+        raise AssertionError("[cmd] the cache debugger's dump has no policy-gym section")
+    if not sched._owned_read_cache._stop.is_set():
+        raise AssertionError("[cmd] sched.stop() left the run()-owned Cacher running")
+    if k1 <= 0:
+        raise AssertionError("[cmd] the Scheduler never launched K1")
+    check_capacity(server, "cmd")
+    if len(server.applied) != len(init) + len(measured) or any(
+        c != 1 for c in server.applied.values()
+    ):
+        raise AssertionError("[cmd] a pod was not bound exactly once")
+    log(f"[cmd] checked from the API server: {len(init) + len(measured)} pods bound "
+        f"once, requested <= allocatable on all {len(nodes)} nodes")
+    return {"rate": rate, "passes": passes, "pass_p50_ms": p50 * 1e3, "k1": k1, "k2": k2}
 
 
 def phase_autoscaler(device, card: str, errors: ErrorLog) -> dict:
@@ -1821,10 +2148,16 @@ def main(argv=None) -> int:
     if standby["k1"] <= 0:
         raise AssertionError("[standby] the warm-up and the promoted loop never launched K1")
     hostcb = phase_hostcb(device, card, errors)
+    caches = cluster_caches(sched_server, device)
     zero_k(fit_kernels)
-    phase_whatif(sched_server, device, card, errors)
+    phase_whatif(sched_server, device, card, errors, caches)
     whatif = dict(zip(("k1", "k2"), count_k(fit_kernels)))
-    del sched_server
+    zero_k(fit_kernels)
+    phase_gym(caches, device, card, errors)
+    gym = dict(zip(("k1", "k2"), count_k(fit_kernels)))
+    del sched_server, caches
+    tuner = phase_tuner(device, card, errors)
+    cmd = phase_cmd(device, card, errors)
     autoscaler = phase_autoscaler(device, card, errors)
     hetero = phase_hetero(device, card, errors)
     defrag = phase_defrag(device, card, errors)
@@ -1843,6 +2176,9 @@ def main(argv=None) -> int:
             "launches_hetero": hetero[k],
             "launches_defrag": defrag[k],
             "launches_hardpair": hardpair[k],
+            "launches_tuner": tuner[k],
+            "launches_gym": gym[k],
+            "launches_cmd": cmd[k],
         }
 
     kernels = {

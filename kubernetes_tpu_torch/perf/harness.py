@@ -11,8 +11,9 @@ defaults, the snapshot auditor on. ``trace_dir`` (the reference's
 Chrome trace. The capacity-planning entries ``run_autoscaler_benchmark``,
 ``run_hetero_benchmark`` and ``run_defrag_benchmark`` drive the port's
 ``ClusterAutoscaler`` and ``Descheduler`` (copies) over the same
-Scheduler. The read-path, serving, tuner and durability benchmarks wait
-for their modules.
+Scheduler. ``run_tuner_benchmark`` drives the port's policy gym
+(``tuner/``) through the reference's workload-mix flip. The read-path,
+serving and durability benchmarks wait for their modules.
 
 Every entry counts the data-plane defense of the whole run into its
 result: the auditor's passes and skipped passes by reason, the drift rows
@@ -1166,6 +1167,221 @@ def run_defrag_benchmark(
         time_to_quiesce_s=round(elapsed, 3),
     )
     return _finish(res, (sched,))
+
+
+@dataclass
+class TunerBenchResult(_Defense):
+    """The `tuner` bench workload: the policy gym driven through a
+    workload-mix flip on a mixed-cost fleet. Pre-flip waves saturate
+    every node (cost-undifferentiated: no arm can beat the incumbent, so
+    NOTHING must promote); the flip switches to small bursts where a
+    cost-aware vector provably wins — time from the flip to the
+    promotion landing is the re-convergence number. The same pre-flip
+    rounds run with the tuner off vs on give the steady-state overhead.
+    bursts / bursts_bound: every burst of the three segments, and those
+    whose pods were all bound before the burst's 30 s deadline (the
+    reference does not count them). The defense fields sum both arms."""
+
+    num_nodes: int = 0
+    pre_flip_rounds: int = 0
+    pre_flip_promotions: int = 0
+    baseline_pods_per_s: float = 0.0
+    tuner_on_pods_per_s: float = 0.0
+    overhead_pct: float = 0.0
+    converged: bool = False
+    time_to_converge_s: float = 0.0
+    promoted_policy: str = ""
+    promoted_cost_weight: float = 0.0
+    promotions: int = 0
+    waves_recorded: int = 0
+    gym_passes: int = 0
+    gym_pass_p50_ms: float = 0.0
+    gym_pass_p99_ms: float = 0.0
+    bursts: int = 0
+    bursts_bound: int = 0
+
+
+def run_tuner_benchmark(
+    n_nodes: int = 8,
+    rounds: int = 4,
+    timeout_s: float = 120.0,
+    device: DeviceLike = None,
+) -> TunerBenchResult:
+    """Drive the self-tuning scheduler (kubernetes_tpu_torch/tuner) end to
+    end. device: None means the CUDA card (raises without one); every
+    Scheduler of the run and the gym's replays live there.
+
+    Topology: n_nodes/2 cheap + n_nodes/2 spendy nodes (9x cost spread),
+    serial non-donating kernel path (the replayable path the gym's
+    differential corpus certifies). Three measured segments:
+
+      1. baseline arm — `rounds` full-width bursts (one 7-CPU pod per
+         node), tuner OFF: scheduling throughput without the gym;
+      2. tuner-on arm — the SAME bursts with the gym replaying every
+         recorded wave in the background: throughput delta = steady-state
+         overhead. Full-width waves use every node in every arm, so all
+         candidate utilities tie and the gate must hold `default`;
+      3. the flip — small 2-pod 500m bursts: a cost-aware arm now beats
+         the incumbent on the $-per-hour term, and the wall clock from
+         the first flipped burst to `set_score_policy` landing is the
+         re-convergence time.
+    """
+    import numpy as np
+
+    from ..api import objects as v1
+    from ..ops.encoding import LABEL_COST_PER_HOUR
+    from ..ops.lattice import SC_COST, WEIGHT_PROFILES
+    from ..tuner.controller import PolicyTuner
+    from ..tuner.policy import (
+        COUNTER_GYM_PASSES,
+        COUNTER_POLICY_PROMOTIONS,
+        COUNTER_WAVES_RECORDED,
+        HIST_GYM_PASS_SECONDS,
+    )
+
+    dev = resolve_device(device)
+    bursts = [0, 0]  # run, bound
+
+    def node(name: str, cost: str) -> v1.Node:
+        return v1.Node(
+            metadata=v1.ObjectMeta(
+                name=name, namespace="", labels={LABEL_COST_PER_HOUR: cost}
+            ),
+            status=v1.NodeStatus(
+                allocatable={"cpu": "8", "memory": "32Gi", "pods": 110}
+            ),
+        )
+
+    def topology():
+        server = APIServer()
+        for i in range(n_nodes // 2):
+            server.create("nodes", node(f"tb-cheap-{i}", "1.0"))
+        for i in range(n_nodes - n_nodes // 2):
+            server.create("nodes", node(f"tb-spendy-{i}", "9.0"))
+        cfg = KubeSchedulerConfiguration(
+            use_wave=False,
+            small_batch_host_max=0,
+            pod_initial_backoff_seconds=0.2,
+            pod_max_backoff_seconds=2.0,
+        )
+        return server, Scheduler(server, cfg, device=dev)
+
+    def one_burst(server, tag: str, size: int, cpu: str) -> None:
+        names = [f"{tag}-{i}" for i in range(size)]
+        for nm in names:
+            server.create(
+                "pods",
+                Pod(
+                    metadata=v1.ObjectMeta(name=nm),
+                    spec=v1.PodSpec(
+                        containers=[v1.Container(requests={"cpu": cpu})]
+                    ),
+                ),
+            )
+        deadline = time.monotonic() + 30.0
+        bursts[0] += 1
+        while time.monotonic() < deadline:
+            if _count_scheduled(server) >= size:
+                bursts[1] += 1
+                break
+            time.sleep(0.02)
+        for nm in names:
+            server.delete("pods", "default", nm)
+        time.sleep(0.2)  # let the informer restore capacity
+
+    def full_width_rounds(server, tag: str) -> float:
+        # untimed warmup burst: the first burst of an arm absorbs the
+        # first launches at the 8-pod shape (the reference's XLA compile;
+        # here the allocator's first blocks and the first eager launches),
+        # so the off-vs-on comparison measures the gym, not the warm-up
+        one_burst(server, f"{tag}-warm", n_nodes, "7")
+        t0 = time.monotonic()
+        for r in range(rounds):
+            one_burst(server, f"{tag}-{r}", n_nodes, "7")
+        elapsed = time.monotonic() - t0
+        return (rounds * n_nodes) / max(elapsed, 1e-9)
+
+    metrics.reset()
+    profiles0 = set(WEIGHT_PROFILES)
+
+    # segment 1: tuner OFF
+    server, sched_off = topology()
+    sched_off.start()
+    try:
+        baseline = full_width_rounds(server, "off")
+    finally:
+        sched_off.stop()
+
+    # segments 2+3: tuner ON — same bursts, then the flip
+    server, sched = topology()
+    tuner = PolicyTuner(
+        sched,
+        server,
+        period_s=0.2,
+        shadow_windows=2,
+        noise_floor=0.005,
+        seed=7,
+    )
+    sched.start()
+    tuner.start()
+    try:
+        on_rate = full_width_rounds(server, "on")
+        pre_flip_promotions = int(metrics.counter(COUNTER_POLICY_PROMOTIONS))
+
+        flip_t0 = time.monotonic()
+        converged_at = None
+        burst = 0
+        while time.monotonic() - flip_t0 < timeout_s:
+            one_burst(server, f"flip-{burst}", 2, "500m")
+            burst += 1
+            deadline = time.monotonic() + 2.0
+            while time.monotonic() < deadline:
+                if (
+                    metrics.counter(COUNTER_POLICY_PROMOTIONS) > pre_flip_promotions
+                    and float(np.asarray(sched._weights)[SC_COST]) > 0.0
+                ):
+                    converged_at = time.monotonic()
+                    break
+                time.sleep(0.05)
+            if converged_at is not None:
+                break
+        promoted = sched._score_policy_name
+        cost_w = float(np.asarray(sched._weights)[SC_COST])
+        promotions = int(metrics.counter(COUNTER_POLICY_PROMOTIONS))
+    finally:
+        tuner.stop()
+        sched.stop()
+        for name in set(WEIGHT_PROFILES) - profiles0:
+            WEIGHT_PROFILES.pop(name, None)
+
+    h = metrics.histogram(HIST_GYM_PASS_SECONDS)
+    p50, p99 = (h.quantiles([0.5, 0.99]) if h is not None else (0.0, 0.0))
+    waves = int(
+        metrics.counter(COUNTER_WAVES_RECORDED, {"path": "serial"})
+        + metrics.counter(COUNTER_WAVES_RECORDED, {"path": "wave"})
+    )
+    res = TunerBenchResult(
+        num_nodes=n_nodes,
+        pre_flip_rounds=rounds,
+        pre_flip_promotions=pre_flip_promotions,
+        baseline_pods_per_s=round(baseline, 1),
+        tuner_on_pods_per_s=round(on_rate, 1),
+        overhead_pct=round((baseline - on_rate) / max(baseline, 1e-9) * 100, 2),
+        converged=converged_at is not None,
+        time_to_converge_s=round(
+            (converged_at - flip_t0) if converged_at is not None else -1.0, 3
+        ),
+        promoted_policy=promoted,
+        promoted_cost_weight=round(cost_w, 4),
+        promotions=promotions,
+        waves_recorded=waves,
+        gym_passes=int(metrics.counter(COUNTER_GYM_PASSES)),
+        gym_pass_p50_ms=round(p50 * 1e3, 2),
+        gym_pass_p99_ms=round(p99 * 1e3, 2),
+        bursts=bursts[0],
+        bursts_bound=bursts[1],
+    )
+    return _finish(res, (sched_off, sched))
 
 
 def _count_scheduled(server: APIServer) -> int:

@@ -68,10 +68,17 @@ reference's, method for method; what changed is the device half:
   to the registry when the copy's event fires, and the resolve takes the
   delivery instead of reading the copy itself.
 
+* The policy gym's wave recorder (``wave_recorder``, set by
+  ``tuner/controller.PolicyTuner``) records each committed serial and wave
+  batch. Where the reference records the launch's PRNG key, a record here
+  keeps ``_noise_key``: the device Generator's state taken just before the
+  draw (``get_state()``, a small host tensor, never the ``[P, N]`` noise),
+  or an injected source's ``replay_key()``, so the gym's replay of a
+  serial wave redraws production's noise exactly.
+
 Not ported yet (construction raises ``NotImplementedError`` naming the
-ROADMAP queue 1 item): ``tune_policy=True`` and the policy gym's wave
-recorder (item 2), ``use_mesh`` over more than one device (item 6). The
-preemption what-if mask is ``ops/lattice.preempt_whatif`` on torch.
+ROADMAP queue 1 item): ``use_mesh`` over more than one device (item 6).
+The preemption what-if mask is ``ops/lattice.preempt_whatif`` on torch.
 
 The reference's design notes follow.
 
@@ -102,7 +109,7 @@ import threading
 import time
 from contextlib import contextmanager
 from concurrent.futures import ThreadPoolExecutor
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -233,12 +240,13 @@ class _InFlightBatch:
     __slots__ = (
         "pis", "eb", "row_names", "res", "moves0", "trace", "t_start",
         "snapshot", "launch_gen", "wave_tid", "t_launched", "copies",
-        "ticket", "trailing",
+        "ticket", "trailing", "weights", "rng_key",
     )
 
     def __init__(
         self, pis, eb, row_names, res, moves0, trace, t_start, snapshot=None,
         launch_gen=0, wave_tid="", t_launched=0.0, copies=None, ticket=None,
+        weights=None, rng_key=None,
     ):
         self.pis = pis
         self.eb = eb
@@ -273,6 +281,10 @@ class _InFlightBatch:
         # commit (None when nothing was placed, or in combined mode) —
         # whoever consumes it finishes the wave trace
         self.trailing = None
+        # the launch's weight vector and tie-noise key, for the policy
+        # gym's wave record (Scheduler._record_wave_for_tuner)
+        self.weights = weights
+        self.rng_key = rng_key
 
 
 class _CountedAntiEntropy(SnapshotAntiEntropy):
@@ -400,8 +412,6 @@ class _FencedBindSurface:
 def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
     """(setting, ROADMAP queue 1 item) pairs this port does not run yet."""
     out = []
-    if cfg.tune_policy:
-        out.append(("tune_policy=True (the policy gym)", 2))
     if cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
         out.append(("use_mesh over more than one device", 6))
     return out
@@ -614,6 +624,10 @@ class Scheduler:
             if isinstance(self.cfg.score_policy, str) and self.cfg.score_policy
             else "default"
         )
+        # policy-gym attachment point (tuner/waves.WaveRingBuffer when a
+        # PolicyTuner is running): device paths record committed waves
+        # here; None = recording off, zero hot-path cost
+        self.wave_recorder = None
         self._tpl_cache = TemplateCache(self.cache.encoder)
         self._pair_cache: Optional[tuple] = None  # (sig, table)
         # scheduler HA (ha.py): the leadership fencing token armed by
@@ -633,6 +647,10 @@ class Scheduler:
         self._standby_stop = threading.Event()
         self._standby_thread: Optional[threading.Thread] = None
         self._standby_last_fresh: Optional[float] = None
+        # a Cacher created FOR this scheduler (cmd/scheduler.run): stop()
+        # tears it down with us, or every run/stop cycle would leak one
+        # store watch per kind plus the bookmark thread
+        self._owned_read_cache = None
         eventhandlers.add_all_event_handlers(self)
 
     def _draw_noise(self, p: int, m_c: int) -> torch.Tensor:
@@ -652,6 +670,21 @@ class Scheduler:
             (p, n), generator=self._rng, device=self.device,
             dtype=torch.float32,
         )
+
+    def _noise_key(self, source) -> Any:
+        """What the policy gym's wave record keeps so a replay redraws the
+        tie noise `source` is about to draw (tuner/scoring.tie_noise):
+        while the recorder is on, the default sources' Generator state
+        taken just before the draw (``get_state()``: a small uint8 host
+        tensor, never the noise itself); an injected source's own
+        ``replay_key()`` (a ``(P, N) -> tensor`` callable that redraws its
+        next draw) if it offers one, else None. Recording off: None."""
+        if self.wave_recorder is None:
+            return None
+        if source == self._draw_noise or source == self._draw_serial_noise:
+            return self._rng.get_state()
+        replay_key = getattr(source, "replay_key", None)
+        return replay_key() if replay_key is not None else None
 
     # -- wiring --------------------------------------------------------------
 
@@ -1083,6 +1116,8 @@ class Scheduler:
         # them (the loop is dead, so nobody else will release them)
         if self._trailing:
             self._drain_trailing(block=True)
+        if self._owned_read_cache is not None:
+            self._owned_read_cache.stop()
         if self._hostcb is not None:
             self._hostcb.close()
         # release parked permit-waiters or the drain below would block on
@@ -1636,6 +1671,7 @@ class Scheduler:
             kern = make_schedule_batch(
                 enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
             )
+            rng_key = self._noise_key(self._serial_noise)
             noise = self._serial_noise(
                 int(eb.batch.valid.shape[0]), int(snap.valid.shape[0])
             )
@@ -1727,6 +1763,7 @@ class Scheduler:
         fallback_pis: List[QueuedPodInfo] = []
         failed: List = []  # (pi, batch_index or -1)
         resolvable = None
+        serial_placed: dict = {}  # id(pi) -> node (tuner wave record)
         serial_to_bind: List = []  # (pi, node_name) decode-first, bind after
         for i, pi in enumerate(pis):
             if eb.fallback[i]:
@@ -1766,8 +1803,12 @@ class Scheduler:
                     "scheduling_algorithm_duration_seconds", algo_dur
                 )
                 self._assume_and_bind(pi, node_name, t_start)
+                serial_placed[id(pi)] = node_name
             if entry is not None:
                 entry.binds_issued = True
+        self._record_wave_for_tuner(
+            pis, serial_placed, w_launch, rng_key, launch_gen, path="serial"
+        )
         if fallback_pis or failed:
             self._snapshot = self.cache.update_snapshot()
         for pi in fallback_pis:
@@ -2269,6 +2310,7 @@ class Scheduler:
                 make_wave_kernel_cb(*variant), ticket, self._hostcb.post
             )
         p_pad = int(eb.pod_tpl_np.shape[0])
+        rng_key = self._noise_key(self._noise)
         noise = self._noise(p_pad, min(m_cand, enc_cfg.n_cap))
         w_launch = np.asarray(self._weights)
         t_launch0 = time.monotonic()
@@ -2302,6 +2344,7 @@ class Scheduler:
             _InFlightBatch(
                 pis, eb, row_names, res, moves0, trace, t_start, verify_snap,
                 launch_gen, wave_tid, t_launched, copies, ticket,
+                w_launch, rng_key,
             )
         )
         metrics.inc("scheduler_wave_batches_total")
@@ -2610,7 +2653,41 @@ class Scheduler:
         trace.step("assume+bind")
         if entry is not None and not entry.quarantined:
             entry.binds_issued = True
+        if entry is None or not entry.quarantined:
+            self._record_wave_for_tuner(
+                p.pis,
+                {id(pi): node for pi, node, _b, _pr in to_bind},
+                p.weights,
+                p.rng_key,
+                p.launch_gen,
+                path="wave",
+            )
         return fallback_pis, failed
+
+    def _record_wave_for_tuner(
+        self, pis, placed_by_id, weights, rng_key, launch_gen, path
+    ) -> None:
+        """Feed the policy gym's replay ring (tuner/waves.py) with a
+        committed batch: pod specs, the launch weight vector + noise key
+        (``_noise_key``), and the placements production actually took.
+        Outside every lock, one guarded append — recording must never
+        perturb scheduling."""
+        rec = self.wave_recorder
+        if rec is None or weights is None:
+            return
+        try:
+            pods = [pi.pod for pi in pis]
+            placements = [placed_by_id.get(id(pi), "") for pi in pis]
+            rec.record_wave(
+                pods,
+                weights,
+                placements,
+                rng_key=rng_key,
+                launch_gen=launch_gen,
+                path=path,
+            )
+        except Exception:
+            logger.exception("wave recording failed (scheduling unaffected)")
 
     # Bound on full preemption scans per resolved batch: with the
     # per-(template, priority) dedup below the bound only engages when a

@@ -9,10 +9,14 @@ Runs the ``kubernetes_tpu_torch`` package found first on ``sys.path`` (set
   ``chip_smoke.py``'s ``[scheduler]`` phase runs);
 * ``start_standby()`` on that workload's 5,000 nodes and 1,000 bound
   initial pods, 500 pods queued while it stands by, ``promote()``, and the
-  time until all 500 are bound (``chip_smoke.py``'s ``[standby]``).
+  time until all 500 are bound (``chip_smoke.py``'s ``[standby]``);
+* with ``--latency-rate R``, ``run_latency_benchmark`` of that workload at
+  R pods/s with 500 pods (``chip_smoke.py``'s ``[latency]`` at a fixed
+  rate, so two trees see the same arrivals).
 
 Prints one JSON line: the tree's label, pods/s, e2e p99, the standby's
-warm-up, promotion and bind times, and the card's name and power limit.
+warm-up, promotion and bind times, the latency run's pod p50/p99 when
+asked, and the card's name and power limit.
 To compare two commits in one chip call, unpack the other commit
 (``git archive``) into a git-ignored directory and run this script once
 per tree, in turns (parent, change, change, parent, ...)::
@@ -96,9 +100,24 @@ def standby(device) -> dict:
     return {"warm_s": warm_s, "promote_ms": promote_ms, "bound_s": bound_s}
 
 
+def latency(device, rate: float) -> dict:
+    from kubernetes_tpu_torch.perf.harness import run_latency_benchmark
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+
+    lat = run_latency_benchmark(
+        WORKLOADS["SchedulingPodAffinity/5000"], rate, n_pods=500,
+        device=device, timeout_s=120,
+    )
+    if lat.scheduled != 500:
+        raise SystemExit(f"latency: {lat.scheduled}/500 bound")
+    return {"latency_rate": rate, "pod_p50_ms": lat.pod_p50_ms, "pod_p99_ms": lat.pod_p99_ms}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", required=True)
+    ap.add_argument("--latency-rate", type=float, default=0.0,
+                    help="also run the latency benchmark at this rate (pods/s)")
     args = ap.parse_args()
     import torch
 
@@ -106,7 +125,10 @@ def main() -> int:
         print("no CUDA device available", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
-    out = {"label": args.label, **burst(device), **standby(device), "card": card_line()}
+    out = {"label": args.label, **burst(device), **standby(device)}
+    if args.latency_rate > 0:
+        out.update(latency(device, args.latency_rate))
+    out["card"] = card_line()
     print(json.dumps(out), flush=True)
     return 0
 

@@ -5,7 +5,9 @@ needs are COPIED into the same place under ``kubernetes_tpu_torch`` with
 only their import lines free to change. This test strips every import
 statement (at any depth, with all of its lines) from both files and
 requires the rest to be equal, character for character — comments and
-docstrings included. A copy that differs in anything else fails.
+docstrings included. A copy that differs in anything else fails. A line
+that starts a module of the package in a new process (``"-m",
+"kubernetes_tpu.relay.worker"``) is an import by name and is stripped too.
 
 Two kinds of copy:
 * whole modules (``WHOLE``);
@@ -15,6 +17,7 @@ Two kinds of copy:
 """
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -103,6 +106,33 @@ WHOLE = [
     "proxy/__init__.py",
     "proxy/proxy.py",
     "proxy/userspace.py",
+    # the policy-gym slice (the gym and the scheduler's process entry)
+    "tuner/__init__.py",
+    "tuner/waves.py",
+    "tuner/candidates.py",
+    "utils/debugserver.py",
+    "scheduler/cache/debugger.py",
+    "cmd/__init__.py",
+    "api/protocodec.py",
+    "apiserver/__init__.py",
+    "apiserver/cacher.py",
+    "apiserver/rest.py",
+    "apiserver/client.py",
+    "apiserver/frontend.py",
+    "apiserver/flowcontrol.py",
+    "apiserver/watchcodec.py",
+    "apiserver/admission.py",
+    "apiserver/auth.py",
+    "apiserver/audit.py",
+    "apiserver/webhook.py",
+    "apiserver/crdschema.py",
+    "apiserver/nodeauth.py",
+    "relay/__init__.py",
+    "relay/publisher.py",
+    "relay/ring.py",
+    "relay/worker.py",
+    "controller/base.py",
+    "controller/resourcequota.py",
 ]
 
 # module -> definitions copied into the port's own module of that name
@@ -134,8 +164,34 @@ DEFINITIONS = {
         "simulate_drain",
     ],
     "ops/lattice.py": ["_BUILTIN_PROFILES", "register_weight_profile"],
-    "tuner/scoring.py": ["fragmentation_score"],
+    "tuner/scoring.py": [
+        "FRAG_WEIGHT",
+        "COST_WEIGHT",
+        "ENERGY_WEIGHT",
+        "fragmentation_score",
+        "WaveOutcome",
+        "OverlaySnapshot",
+        "pad_pow2",
+        "rows_for_placements",
+        "score_assignment",
+        "divergence",
+        "replay_wave",
+    ],
+    "tuner/controller.py": [
+        "PolicyTuner.start",
+        "PolicyTuner.stop",
+        "PolicyTuner._run",
+        "PolicyTuner.inject_candidate",
+        "PolicyTuner._assemble_candidates",
+        "PolicyTuner._decide",
+        "PolicyTuner._promote",
+        "PolicyTuner._rollback",
+    ],
+    "cmd/scheduler.py": ["_HealthHandler", "serve_health"],
 }
+
+# `python -m <module of the package>` in an argument list
+_SPAWN = re.compile(r'"-m", "kubernetes_tpu(_torch)?\.')
 
 
 def _import_lines(tree):
@@ -158,7 +214,9 @@ class _Module:
         self.src = path.read_text()
         self.lines = self.src.splitlines()
         self.tree = ast.parse(self.src)
-        self.skip = _import_lines(self.tree)
+        self.skip = _import_lines(self.tree) | {
+            i + 1 for i, line in enumerate(self.lines) if _SPAWN.search(line)
+        }
 
     def text(self, node=None) -> str:
         if node is None:
@@ -222,8 +280,9 @@ def test_every_module_under_a_copied_directory_is_listed():
     ported = {
         "scheduler/scheduler.py",
         "scheduler/wavepath.py",
-        "tuner/__init__.py",
         "tuner/scoring.py",
+        "tuner/controller.py",
+        "cmd/scheduler.py",
         "perf/harness.py",
         "testing/__init__.py",
         "testing/device_faults.py",
@@ -232,7 +291,7 @@ def test_every_module_under_a_copied_directory_is_listed():
     listed = set(WHOLE) | ported
     for d in ("api", "client", "runtime", "utils", "controller", "scheduler",
               "tuner", "perf", "testing", "autoscaler", "descheduler",
-              "kubelet", "kubemark", "proxy"):
+              "kubelet", "kubemark", "proxy", "apiserver", "relay", "cmd"):
         for p in sorted((PORT / d).rglob("*.py")):
             rel = str(p.relative_to(PORT))
             assert rel in listed, f"{rel} is neither a listed copy nor a port"

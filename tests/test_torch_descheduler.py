@@ -19,9 +19,9 @@ the ported what-if pass) on the CPU (the port at device="cpu").
     degraded store before and during a wave, the fenced descheduler and
     the orphan sweep, the eviction budget shared by three actors, the
     stale PDB column and the store's eviction gate against a host PDB
-    oracle. The reference's RESTClient Retry-After test drives
-    ``apiserver/client.py`` and ``apiserver/rest.py``, which the port has
-    not copied yet (ROADMAP queue 1 item 5).
+    oracle, and the RESTClient's paced retry on a 429 eviction refusal
+    carrying Retry-After (the copied ``apiserver/client.py`` against the
+    copied ``apiserver/rest.py``).
 
 Tolerances: exact, apart from the eviction budget's token envelope,
 which is the reference test's own.
@@ -42,7 +42,7 @@ from kubernetes_tpu_torch.autoscaler import (
     WhatIfSimulator,
     machine_shape,
 )
-from kubernetes_tpu_torch.client.apiserver import TooManyRequests
+from kubernetes_tpu_torch.client.apiserver import NotFound, TooManyRequests
 from kubernetes_tpu_torch.client.leaderelection import BindFence, Lease
 from kubernetes_tpu_torch.controller.evictionbudget import EvictionBudget
 from kubernetes_tpu_torch.controller.replicaset import ReplicaSetController
@@ -780,3 +780,68 @@ def test_eviction_gate_matches_host_pdb_oracle_differentially():
     for name, (_sel, allowed) in budgets.items():
         pdb = store.get("poddisruptionbudgets", "default", name)
         assert pdb.status.disruptions_allowed == allowed, name
+
+
+# -- RESTClient.evict_pod honors Retry-After on 429 ---------------------------
+
+
+def _get_or_none(store, kind, ns, name):
+    try:
+        return store.get(kind, ns, name)
+    except NotFound:
+        return None
+
+
+def test_rest_evict_honors_retry_after_on_429():
+    """A 429 eviction refusal carrying Retry-After is retried after the
+    hinted pause (previously the client gave up on the first refusal);
+    a refusal that outlives the retries raises TooManyRequests with the
+    hint attached for the caller's pacing."""
+    from kubernetes_tpu_torch.apiserver.client import RESTClient
+    from kubernetes_tpu_torch.apiserver.rest import serve
+
+    srv, port, store = serve(port=0)
+    client = RESTClient(f"http://127.0.0.1:{port}", timeout=5.0)
+    try:
+        store.create(
+            "pods",
+            make_bound_pod("rt-0", "defrag-h0", labels={"app": "web"}),
+        )
+        store.create(
+            "poddisruptionbudgets",
+            v1.PodDisruptionBudget(
+                metadata=v1.ObjectMeta(name="web-pdb"),
+                spec=v1.PodDisruptionBudgetSpec(selector={"app": "web"}),
+                status=v1.PodDisruptionBudgetStatus(disruptions_allowed=0),
+            ),
+        )
+        # exhausted budget that STAYS exhausted: the paced retries run
+        # out and the refusal surfaces with the hint attached
+        t0 = time.monotonic()
+        with pytest.raises(TooManyRequests) as exc:
+            client.evict_pod("default", "rt-0", retries_429=1)
+        elapsed = time.monotonic() - t0
+        assert exc.value.retry_after_s is not None
+        assert elapsed >= 0.9, (
+            f"client did not sleep out the Retry-After hint ({elapsed:.2f}s)"
+        )
+        assert _get_or_none(store, "pods", "default", "rt-0") is not None
+        # budget refills while the client is sleeping out the hint: the
+        # paced retry succeeds instead of surfacing the refusal
+        def refill():
+            time.sleep(0.3)
+
+            def mutate(cur):
+                cur.status.disruptions_allowed = 1
+                return cur
+
+            store.guaranteed_update(
+                "poddisruptionbudgets", "default", "web-pdb", mutate
+            )
+
+        threading.Thread(target=refill, daemon=True).start()
+        client.evict_pod("default", "rt-0", retries_429=2)
+        assert _get_or_none(store, "pods", "default", "rt-0") is None
+    finally:
+        client.close()
+        srv.shutdown()

@@ -26,7 +26,17 @@ for new in ("parallel.sharded", "parallel.mesh", "ops.hostcallback",
             "autoscaler", "autoscaler.planner", "autoscaler.controller",
             "descheduler", "descheduler.planner", "descheduler.executor",
             "kubelet", "kubelet.kubelet", "kubemark", "kubemark.hollow_node",
-            "proxy", "controller.nodelifecycle", "controller.replicaset"):
+            "proxy", "controller.nodelifecycle", "controller.replicaset",
+            # the policy-gym slice's
+            "tuner.waves", "tuner.candidates", "tuner.scoring",
+            "tuner.controller", "cmd", "cmd.scheduler",
+            "scheduler.cache.debugger", "utils.debugserver", "api.protocodec",
+            "apiserver", "apiserver.cacher", "apiserver.rest",
+            "apiserver.client", "apiserver.frontend", "apiserver.flowcontrol",
+            "apiserver.watchcodec", "apiserver.admission", "apiserver.auth",
+            "apiserver.audit", "apiserver.webhook", "apiserver.crdschema",
+            "apiserver.nodeauth", "relay", "relay.publisher", "relay.ring",
+            "relay.worker", "controller.base", "controller.resourcequota"):
     assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
@@ -61,8 +71,9 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     # the data-plane defense slice's (parallel, the host-callback
     # registry, the auditor, the fault injector) and the capacity-planning
     # slice's (autoscaler, descheduler, kubelet, kubemark, proxy and the
-    # controllers they need)
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 101
+    # controllers they need) and the policy-gym slice's (the gym, the
+    # process entry, the debugger, apiserver/, relay/)
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 128
 
 
 def test_chip_smoke_names_no_reference_module():
@@ -87,7 +98,9 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
         "from kubernetes_tpu_torch.client.apiserver import APIServer\n"
         "from kubernetes_tpu_torch.perf.harness import (\n"
         "    default_config, run_autoscaler_benchmark, run_benchmark,\n"
-        "    run_defrag_benchmark, run_hetero_benchmark, run_latency_benchmark)\n"
+        "    run_defrag_benchmark, run_hetero_benchmark, run_latency_benchmark,\n"
+        "    run_tuner_benchmark)\n"
+        "from kubernetes_tpu_torch.cmd import scheduler as cmd_scheduler\n"
         "from kubernetes_tpu_torch.perf.workloads import WorkloadConfig\n"
         "from kubernetes_tpu_torch.scheduler import Scheduler\n"
         "assert not torch.cuda.is_available()\n"
@@ -101,8 +114,11 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
         "def autoscaler(): return run_autoscaler_benchmark(n_pods=1)\n"
         "def hetero(): return run_hetero_benchmark(n_pods=1)\n"
         "def defrag(): return run_defrag_benchmark()\n"
+        "def tuner(): return run_tuner_benchmark()\n"
+        "def cmd_run(): return cmd_scheduler.run(APIServer(), healthz_port=0, block=False)\n"
+        "def cmd_main(): return cmd_scheduler.main(['--healthz-port', '0'])\n"
         "for call in (resolve_device, SnapshotEncoder, scheduler, bench, latency,\n"
-        "             autoscaler, hetero, defrag):\n"
+        "             autoscaler, hetero, defrag, tuner, cmd_run, cmd_main):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"

@@ -26,6 +26,9 @@ perf harness on the CPU (device="cpu"), against the reference.
     the batch, so it never narrows) and batch 512 with m_cand 64 (every
     batch rides the small bucket: 256-pod pad, 32 candidates, at most 2
     waves without hard pairs).
+    With a policy-gym wave ring on both Schedulers, the recorded waves are
+    equal too, on the wave path here and on the serial path in (d): pod
+    names, launch weights, placements, path and launch generation.
 (b) The reference's threaded tests on the port: test_split_phase.py
     (binds_all_and_drains_trailing, off_restores_combined_readback,
     trailing_readback_max_validation), test_pipeline.py (the four depth
@@ -183,11 +186,14 @@ def _profiles(pkg, name):
 
 def _settled(s):
     """Every assumed pod is confirmed bound or parked at Permit (a gang
-    below quorum)."""
+    below quorum). A released member stays in the framework's waiting map
+    until its bind thread wakes, so it counts as parked only while its
+    permit is still pending."""
     waiting = {
         wp.pod.metadata.key
         for prof in s.profiles.values()
         for wp in list(prof.framework.waiting_pods.values())
+        if not wp._event.is_set()
     }
     return set(s.cache.assumed_keys()) <= waiting
 
@@ -272,6 +278,7 @@ def batch_parity(name, batch, m_cand, monkeypatch, **settings):
     ref_rec = _Recorder(ref, True, collections.deque())
     port_rec = _Recorder(port, False)
     ref_rec.keys = keys
+    rings = _attach_wave_rings(ref, port)
     try:
         for s in (ref, port):
             s._bringup()
@@ -336,6 +343,7 @@ def batch_parity(name, batch, m_cand, monkeypatch, **settings):
             s._drain_trailing(block=True)
         # batch 16 takes at least three batches; batch 512 takes one or two
         assert batches >= (3 if batch < len(pods) else 1)
+        assert_same_waves(*rings, "wave", placements=ties == 0)
         assert len(_bound(server)) == len(pods) + n_init
         assert not port._trailing and not port._pending
         assert _counter_sum("kernel_guard_trips_total") == 0
@@ -343,6 +351,34 @@ def batch_parity(name, batch, m_cand, monkeypatch, **settings):
         ref.stop()
         port.stop()
     return ref, port
+
+
+def _attach_wave_rings(ref, port):
+    """A policy-gym wave ring on each Scheduler, large enough to keep every
+    batch of a run."""
+    from kubernetes_tpu.tuner.waves import WaveRingBuffer as RefRing
+    from kubernetes_tpu_torch.tuner.waves import WaveRingBuffer
+
+    ref.wave_recorder, port.wave_recorder = RefRing(4096), WaveRingBuffer(4096)
+    return ref.wave_recorder, port.wave_recorder
+
+
+def assert_same_waves(ref_ring, port_ring, path, placements=True):
+    """The two Schedulers recorded the same waves: pod names, launch
+    weights, production placements (unless a near-tie was chosen), path
+    and launch generation. The port's ring holds no device tensor."""
+    ref_recs, port_recs = ref_ring.snapshot(), port_ring.snapshot()
+    assert len(port_recs) == len(ref_recs) > 0
+    for i, (r, p) in enumerate(zip(ref_recs, port_recs)):
+        assert [x.metadata.name for x in p.pods] == [x.metadata.name for x in r.pods], i
+        assert p.weights.dtype == r.weights.dtype
+        np.testing.assert_array_equal(p.weights, r.weights)
+        if placements:
+            assert p.placements == r.placements, i
+        assert (p.path, p.launch_gen, p.seq) == (path, r.launch_gen, r.seq), i
+        assert r.path == path
+        key = p.rng_key
+        assert not (isinstance(key, torch.Tensor) and key.device.type != "cpu")
 
 
 # -- (b) the reference's threaded tests on the port --------------------------
@@ -939,31 +975,53 @@ def test_harness_fails_a_run_whose_device_latched_down(entry, monkeypatch):
 @pytest.mark.parametrize(
     "override,item",
     [
-        (dict(tune_policy=True), 2),
+        (dict(use_mesh=True), 6),
     ],
 )
-def test_unported_settings_raise_with_their_roadmap_item(override, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1 item {item}"):
-        Scheduler(APIServer(), _cfg(**override), device="cpu")
+def test_unported_settings_raise_with_their_roadmap_item(override, item, monkeypatch):
+    """Only a mesh over more than one card is refused. The check is asked
+    directly, with two cards faked, so it runs without a card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    unported = port_sched_mod._unported_settings(
+        KubeSchedulerConfiguration(**override), torch.device("cuda")
+    )
+    assert [i for _what, i in unported] == [item]
+    assert port_sched_mod._unported_settings(
+        KubeSchedulerConfiguration(**override), torch.device("cpu")
+    ) == []
 
 
 @pytest.mark.parametrize(
     "override",
-    [dict(host_callback_binds=True), dict(antientropy_period_s=0.05)],
-    ids=["host_callback_binds", "antientropy"],
+    [
+        dict(host_callback_binds=True),
+        dict(antientropy_period_s=0.05),
+        dict(tune_policy=True),
+    ],
+    ids=["host_callback_binds", "antientropy", "tune_policy"],
 )
 def test_formerly_unported_settings_construct_and_bind(override):
-    """ROADMAP queue 1 items 5 and 6 run: a Scheduler with either setting
+    """Settings the port once refused run: a Scheduler with any of them
     constructs, binds every pod, and (the auditor) completes passes with
-    no drift, or (host callbacks) takes every fast payload from a
-    delivery."""
+    no drift, (host callbacks) takes every fast payload from a delivery,
+    or (tune_policy, which cmd/scheduler.run reads to start the gym)
+    records every wave batch it commits into an attached ring."""
     metrics.reset()
     server = _mk_server(4)
     sched = Scheduler(server, _cfg(**override), device="cpu")
+    if "tune_policy" in override:
+        from kubernetes_tpu_torch.tuner.waves import WaveRingBuffer
+
+        sched.wave_recorder = WaveRingBuffer(1024)
     sched.start()
     try:
         _run_pods(server, sched, 40)
-        if "antientropy_period_s" in override:
+        if "tune_policy" in override:
+            recs = sched.wave_recorder.snapshot()
+            assert sum(len(r.pods) for r in recs) == 40
+            assert all(r.path == "wave" and all(r.placements) for r in recs)
+            assert metrics.counter("scheduler_wave_batches_total") == len(recs)
+        elif "antientropy_period_s" in override:
             _wait(
                 lambda: metrics.counter("snapshot_audit_passes_total") >= 2,
                 10, "two audit passes",
@@ -1111,6 +1169,7 @@ def test_serial_scheduler_matches_reference_batch_by_batch(name):
     )
     ref_rec = _SerialRecorder(ref, True, keys)
     port_rec = _SerialRecorder(port, False)
+    rings = _attach_wave_rings(ref, port)
     try:
         for s in (ref, port):
             s._bringup()
@@ -1152,6 +1211,7 @@ def test_serial_scheduler_matches_reference_batch_by_batch(name):
         assert batches == -(-len(pods) // 16)
         assert len(_bound(server)) == len(pods) + n_init
         assert not keys and not port._trailing
+        assert_same_waves(*rings, "serial")
         assert _counter_sum("kernel_guard_trips_total") == 0
     finally:
         ref.stop()
