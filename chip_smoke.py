@@ -128,6 +128,55 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    with its policy-gym section, a gym pass after the burst, K1 launched,
    the defense counters 0; pods/s with the gym on, gym passes, pass p50.
    The tuner, then the Scheduler and its Cacher, are stopped.
+16d. [kubeadm]: the whole control plane through its user entry points,
+   at SchedulingPodAffinity/5000's full size. cmd.kubeadm.init_cluster(
+   replication=True) with every controller but the four that rescan the
+   whole store under its lock (attachdetach, nodelifecycle,
+   garbagecollector, podgc: with them the burst decays to a few pods/s at
+   this size), so not kubeadm's default controller set, and no device
+   (the Scheduler, the reference's bare KubeSchedulerConfiguration(), on
+   the card); a standby_cluster tailing its replication stream from a
+   process of its own, as on a machine of its own (synced before the
+   phase writes); 3 nodes joined over the bootstrap token (signed
+   discovery, node credentials from the CSR controllers), then 5,000
+   nodes, 1,000 initial and 5,000 measured pods created through the
+   secured REST facade (authn, RBAC, admission, audit) by 8 admin clients
+   into the WAL-backed store, fsynced and replicated, and a 100-replica
+   Deployment applied through cmd.kubectl (the Deployment and ReplicaSet
+   controllers make its pods). Requires K1 launched, the defense
+   counters 0 and no ERROR but the node IPAM controller's "cluster CIDR
+   ... exhausted" (its default /16 holds 256 node CIDRs; counted), and,
+   checked on the primary's store once [failover] has stopped it (the
+   check holds the interpreter for seconds, which would stall the
+   listener's acks), every pod bound exactly once (a ledger on the store's
+   bind_pods), requested <= allocatable on all 5,003 nodes and each
+   measured pod in a zone that held an app=bench pod. Prints time to all
+   bound, the measured burst's pods/s from the first create to the last
+   bind, create-call p50/p99, K1 launches, blocking readbacks and the
+   replication layer's warnings (follower ejections).
+16e. [failover]: after [kubeadm], a graceful stop: the writers (the
+   joined nodes' agents, the controllers) stop, and the follower must be
+   in the sync set with every write acknowledged (legacy two-node
+   replication ejects a follower whose ack misses its 0.75 s deadline
+   and acks without it until it resyncs; the ejections are counted
+   beside the primary's full-collection pauses); the primary is stopped
+   and its acknowledged state taken (a ledger on the listener's ship():
+   each object's rv and wire digest, the acknowledged deletes); the
+   standby promotes when its 2 s lease lapses, behind the same security,
+   in its own process. Requires the promoted rv at or past
+   the last acknowledged rv, every acknowledged object in the promoted
+   store at its rv (taken at promotion, before the promoted plane
+   writes) and, where not written since, with the same wire form, no
+   acknowledged delete undone and no object the primary never had; then
+   1,000 pods created through the promoted REST port each bound exactly
+   once by the promoted Scheduler on the card (K1 launched), requested
+   <= allocatable. Prints stop -> promoted and stop -> serving, the time
+   to all 1,000 bound and K1 launches.
+16f. [durability]: run_durability_benchmark() at the reference's defaults
+   (50,000 records, batches of 64, 2,000 fsynced): append rates with
+   fsync on and off, fsync p50/p99, recovery time. Requires the native
+   WAL sink (native/walsink.cpp, built with g++) and every record
+   recovered. Touches no device.
 17. [guards] and [device-loss] on a 500-node cluster (SchedulingPodAffinity's
    nodes, 100 pre-bound pods; the host path binds a quarantined batch
    in seconds there) with the fault injector (testing/device_faults.py):
@@ -137,13 +186,14 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    launch (wave or serial) lost latches after K losses. Every pod bound
    exactly once, none oversubscribed, no assume leaked.
 
-The Scheduler phases (5-9, 11, 13-16c) print the auditor's passes, its skips by
+The Scheduler phases (5-9, 11, 13-16e) print the auditor's passes, its skips by
 reason, drift rows, rebuilds and scheduler_device_down, and fail unless
 the last three are 0. Every phase but the fault phases fails on any ERROR
-record the port logs; a fault phase fails on any ERROR it did not cause.
+record the port logs; a fault phase fails on any ERROR it did not cause
+([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 5, 6, 7, 8, 9, 11 and 12-16c) and read just after. The last lines are the
+2, 5, 6, 7, 8, 9, 11, 12-16c, 16d and 16e) and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
@@ -154,7 +204,8 @@ on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
 (``launches_autoscaler``, ``launches_hetero``, ``launches_defrag``,
 ``launches_hardpair``), the gym's replays, the tuner bench and the
 process entry (``launches_gym``, ``launches_tuner``: the serial lattice,
-0; ``launches_cmd``),
+0; ``launches_cmd``), the kubeadm control plane and its promoted standby
+(``launches_kubeadm``, ``launches_failover``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -169,6 +220,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import importlib.util
 import json
 import logging
@@ -553,13 +605,18 @@ class ErrorLog(logging.Handler):
                 log(f"[{what}] ERROR logged: {r.name}: {r.getMessage()}")
             raise AssertionError(f"[{what}] {len(self.records)} ERROR records logged")
 
-    def expect(self, what: str, allowed) -> int:
+    def expect(self, what: str, allowed, raised=()) -> int:
         """The end of a fault phase, which logs ERRORs on purpose: every
         record since the phase began must contain one of the `allowed`
-        messages, any other fails the run. Clears the records and returns
-        how many there were."""
+        messages, or carry an exception of one of the `raised` types, any
+        other fails the run. Clears the records and returns how many
+        there were."""
         records, self.records = self.records, []
-        other = [r for r in records if not any(a in r.getMessage() for a in allowed)]
+        other = [
+            r for r in records
+            if not any(a in r.getMessage() for a in allowed)
+            and not (r.exc_info and isinstance(r.exc_info[1], tuple(raised)))
+        ]
         for r in other[:5]:
             log(f"[{what}] unexpected ERROR logged: {r.name}: {r.getMessage()}")
         if other:
@@ -618,11 +675,13 @@ def check_bindings(server, n_measured: int, what: str) -> None:
     (``pod-*``) in a zone that held an app=bench pod (its required zone
     affinity)."""
     nodes, pods = check_capacity(server, what)
-    zone_of = {n.metadata.name: n.metadata.labels["topology.kubernetes.io/zone"] for n in nodes}
+    # nodes joined over a bootstrap token carry no zone: no measured pod
+    # may land there
+    zone_of = {n.metadata.name: n.metadata.labels.get("topology.kubernetes.io/zone") for n in nodes}
     init_zones = {
         zone_of[p.spec.node_name] for p in pods
         if p.metadata.name.startswith("init-") and p.metadata.labels.get("app") == "bench"
-    }
+    } - {None}
     measured = [p for p in pods if p.metadata.name.startswith("pod-")]
     stray = [p.metadata.name for p in measured if zone_of[p.spec.node_name] not in init_zones]
     if len(measured) != n_measured or stray:
@@ -2081,13 +2140,866 @@ def phase_hardpair(device, card: str, errors: ErrorLog) -> dict:
     return {"res": res, "k1": k1, "k2": k2, "waves": waves}
 
 
+# the control-plane phases' cluster and their rigs
+KUBEADM_WORKLOAD = "SchedulingPodAffinity/5000"
+KUBEADM_WORKERS = 3  # nodes joined over the bootstrap token
+KUBEADM_DEPLOYMENT = 100  # replicas of the Deployment applied through kubectl
+FAILOVER_PODS = 1000  # pods created through the promoted plane
+STANDBY_LEASE_S = 2.0  # kubeadm standby's default --lease-seconds
+CREATE_THREADS = 8  # concurrent admin clients creating objects
+# The reference's node IPAM controller allocates /24 pod CIDRs from
+# 10.244.0.0/16, so it has 256 to give: past that it logs this ERROR once
+# per node. kubeadm runs it with its defaults, so at 5,000 nodes the
+# ERROR is the reference's behaviour; the phases count it.
+CIDR_EXHAUSTED = "cluster CIDR 10.244.0.0/16 exhausted"
+# The replication layer's WARNINGs that mean the follower left the sync
+# set: kubeadm's listener runs in legacy two-node mode, which acks a write
+# without a follower that missed the 0.75 s ack deadline; the follower
+# then resyncs from a full snapshot and may not promote until it has. The
+# phases count them; [failover] requires the follower back in the sync set
+# before the stop.
+SYNC_SET_EXITS = ("ejecting follower", "dropping follower", "ejected from sync set")
+
+
+# The controllers that read the whole store under its lock, again and
+# again: attachdetach lists every pod on every pod, node or PVC event;
+# nodelifecycle lists every node, lease and pod each second;
+# garbagecollector lists every kind every 2 s; podgc counts every pod on
+# each pod event. At 5,003 nodes and 6,100 pods they hold the store's
+# lock and the interpreter most of the time: with all but attachdetach
+# on, the 5,000 measured pods took 852 s to bind (5.9 pods/s, create p99
+# 5.0 s). The workload mounts no volume and no node goes away; the
+# Deployment's ReplicaSet and pods carry owner references, but nothing is
+# deleted, so the garbage collector would find nothing to collect. The
+# phases leave them out: they do not run kubeadm's default controller set.
+SCANNING_CONTROLLERS = ("attachdetach", "nodelifecycle", "garbagecollector", "podgc")
+
+
+def kubeadm_controllers() -> list:
+    """Every controller of the controller manager but SCANNING_CONTROLLERS."""
+    from kubernetes_tpu_torch.controller.manager import CONTROLLER_INITIALIZERS
+
+    return [name for name in CONTROLLER_INITIALIZERS if name not in SCANNING_CONTROLLERS]
+
+
+def wall_clock(t: float) -> str:
+    return time.strftime("%H:%M:%S", time.localtime(t)) + f".{int(t % 1 * 1000):03d}"
+
+
+class FullCollections:
+    """Times the interpreter's full (generation 2) collections through
+    gc.callbacks, from now on; prints each one over 100 ms with its wall
+    time, beside the replication layer's exits: a collection stops every
+    thread, the acks' too, and the listener's ack deadline is 0.75 s."""
+
+    def __init__(self, who: str):
+        self.who = who
+        self.pauses = []
+        self._t0 = None
+        gc.callbacks.append(self._callback)
+
+    def _callback(self, phase, info):
+        if info["generation"] != 2:
+            return
+        if phase == "start":
+            self._t0 = time.perf_counter()
+        elif self._t0 is not None:
+            ms = (time.perf_counter() - self._t0) * 1e3
+            self._t0 = None
+            self.pauses.append(ms)
+            if ms > 100:
+                print(f"[gc] {self.who}: a full collection took {ms:.1f} ms, ending at "
+                      f"{wall_clock(time.time())}", flush=True)
+
+    def summary(self) -> str:
+        p = self.pauses
+        return (f"{self.who}: {len(p)} full collections, longest {max(p, default=0):.1f} ms, "
+                f"{sum(p):.1f} ms in all")
+
+    def close(self):
+        gc.callbacks.remove(self._callback)
+
+
+class ReplicationLog(logging.Handler):
+    """Counts the replication layer's WARNING records by message (follower
+    drops and ejections, resyncs, elections): the control-plane phases
+    print them beside their numbers."""
+
+    NAME = "kubernetes_tpu.runtime.replication"
+
+    def __init__(self):
+        super().__init__(level=logging.WARNING)
+        self.counts = {}
+        logging.getLogger(self.NAME).addHandler(self)
+
+    def emit(self, record):
+        msg = record.getMessage()[:80]
+        self.counts[msg] = self.counts.get(msg, 0) + 1
+        if any(e in msg for e in SYNC_SET_EXITS):
+            log(f"[replication] {wall_clock(record.created)}: {msg}")
+
+    def exits(self) -> int:
+        """The follower's exits from the sync set so far (SYNC_SET_EXITS)."""
+        return sum(n for msg, n in list(self.counts.items())
+                   if any(e in msg for e in SYNC_SET_EXITS))
+
+    def close(self):
+        logging.getLogger(self.NAME).removeHandler(self)
+        super().close()
+
+
+def bind_ledger(store) -> dict:
+    """Counts the binds `store` applies per pod uid, from now on: the
+    control-plane phases' "every pod bound exactly once" (their store is
+    built inside init_cluster / the standby's promotion)."""
+    from collections import defaultdict
+
+    applied = defaultdict(int)
+    inner = store.bind_pods
+
+    def bind_pods(bindings, fence=None):
+        errs = inner(bindings, fence=fence)
+        for b, err in zip(bindings, errs):
+            if err is None:
+                applied[b.pod_uid] += 1
+        return errs
+
+    store.bind_pods = bind_pods
+    return applied
+
+
+def ack_ledger(listener, store) -> dict:
+    """Records what the primary acknowledges from now on. A write reaches
+    its client only after the replication listener's ship() returns, so
+    "rv" is the highest rv shipped without raising (it starts at the
+    store's rv: every earlier write has returned), "deletes" the rv of each
+    acknowledged delete, and "refused" every object key whose write ship()
+    refused (NotPrimary at the stop): applied on the primary, never
+    acknowledged. "ship_s" holds each acknowledged ship()'s seconds."""
+    led = {"rv": store.resource_version, "deletes": {}, "refused": set(), "ship_s": []}
+    inner = listener.ship
+
+    def ship(records):
+        t0 = time.perf_counter()
+        try:
+            inner(records)
+        except BaseException:
+            led["refused"].update(f"{kind}/{obj.metadata.key}"
+                                  for _, _, kind, obj in records if obj is not None)
+            raise
+        s = time.perf_counter() - t0
+        led["ship_s"].append(s)
+        if s > 0.5:
+            log(f"[replication] {wall_clock(time.time())}: a ship() took {s * 1e3:.1f} ms")
+        for rv, verb, kind, obj in records:
+            led["rv"] = max(led["rv"], rv)
+            if verb == "delete" and obj is not None:
+                led["deletes"][f"{kind}/{obj.metadata.key}"] = rv
+
+    listener.ship = ship
+    return led
+
+
+def object_digest(obj) -> str:
+    """A digest of an object's wire form (what replication ships)."""
+    import hashlib
+
+    from kubernetes_tpu_torch.api import serialization
+
+    wire = json.dumps(serialization.encode(obj), sort_keys=True)
+    return hashlib.sha1(wire.encode()).hexdigest()
+
+
+def store_objects(store) -> list:
+    """(kind/key, object) of every object of every kind in `store`, under
+    its lock."""
+    with store._lock:
+        return [(f"{kind}/{key}", obj)
+                for kind, objs in store._objects.items() for key, obj in objs.items()]
+
+
+def acked_state(store, led) -> dict:
+    """The stopped primary's acknowledged state: each object whose last
+    write was acknowledged (rv <= led["rv"]) as [rv, digest]; the keys of
+    the rest (written past the last acknowledgement, or refused) under
+    "unacked"; and the acknowledged deletes."""
+    objects, unacked = {}, set(led["refused"])
+    for key, obj in store_objects(store):
+        rv = obj.metadata.resource_version
+        if rv <= led["rv"]:
+            objects[key] = [rv, object_digest(obj)]
+        else:
+            unacked.add(key)
+    return {"acked_rv": led["rv"], "rv": store.resource_version, "objects": objects,
+            "unacked": sorted(unacked), "deletes": led["deletes"]}
+
+
+def create_all(url: str, token: str, kind: str, objs) -> list:
+    """Creates `objs` through the secured REST facade from CREATE_THREADS
+    admin clients at once; returns each create call's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from kubernetes_tpu_torch.apiserver.client import AuthRESTClient
+
+    local = threading.local()
+    clients = []
+
+    def create(obj):
+        c = getattr(local, "client", None)
+        if c is None:
+            c = local.client = AuthRESTClient(url, token=token)
+            clients.append(c)
+        t0 = time.perf_counter()
+        c.create(kind, obj)
+        return time.perf_counter() - t0
+
+    try:
+        with ThreadPoolExecutor(CREATE_THREADS) as ex:
+            return list(ex.map(create, objs))
+    finally:
+        for c in clients:
+            c.close()
+
+
+def wait_bound(store, count: int, what: str, prefix: str) -> float:
+    """Polls `store` until `count` pods named `prefix`* are bound (at most
+    600 s); returns the monotonic time it saw them."""
+    deadline = time.monotonic() + 600
+    while True:
+        n = store.count(
+            "pods", lambda p: bool(p.spec.node_name) and p.metadata.name.startswith(prefix)
+        )
+        if n >= count:
+            return time.monotonic()
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[{what}] {n}/{count} pods bound")
+        time.sleep(0.02)
+
+
+def check_bound_once(applied: dict, pods, what: str) -> None:
+    counts = [applied.get(p.metadata.uid, 0) for p in pods]
+    if any(c != 1 for c in counts):
+        bad = [p.metadata.name for p, c in zip(pods, counts) if c != 1]
+        raise AssertionError(f"[{what}] {len(bad)} pods not bound exactly once, e.g. {bad[:3]}")
+
+
+STANDBY_SYNCED = "[standby synced] "
+STANDBY_RESULT = "[standby result] "
+
+
+class StandbyProcess:
+    """kubeadm's standby in a process of its own, as a standby runs on a
+    machine of its own: this script with --standby (standby_main). Its
+    settings and, after the primary's stop, the primary's word go over its
+    standard input; its output is echoed, but for its tagged lines, which
+    wait() hands over."""
+
+    def __init__(self, addr, data_dir: str, token: str):
+        import queue
+
+        self.proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--standby"],
+            stdin=subprocess.PIPE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True,
+        )
+        self.tagged = queue.Queue()
+        threading.Thread(target=self._read, daemon=True, name="standby-echo").start()
+        self.send({"addr": list(addr), "data_dir": data_dir, "token": token})
+
+    def _read(self):
+        for line in self.proc.stdout:
+            if line.startswith((STANDBY_SYNCED, STANDBY_RESULT)):
+                self.tagged.put(line)
+            else:
+                print(line, end="", flush=True)
+        self.tagged.put(None)
+
+    def send(self, msg: dict) -> None:
+        self.proc.stdin.write(json.dumps(msg) + "\n")
+        self.proc.stdin.flush()
+
+    def wait(self, tag: str, timeout: float) -> dict:
+        import queue
+
+        try:
+            line = self.tagged.get(timeout=timeout)
+        except queue.Empty:
+            raise AssertionError(f"the standby process printed no {tag.strip()} "
+                                 f"line in {timeout:.0f} s") from None
+        if line is None or not line.startswith(tag):
+            raise AssertionError(f"the standby process ended before its {tag.strip()} "
+                                 f"line (exit code {self.proc.wait()})")
+        return json.loads(line[len(tag):])
+
+    def stop(self) -> int:
+        """Waits up to 60 s for the process to end, then kills it; returns
+        its exit code."""
+        try:
+            return self.proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            return self.proc.wait()
+
+
+def phase_kubeadm(card: str, errors: ErrorLog) -> dict:
+    """[kubeadm] the whole control plane through its user entry points:
+    init_cluster(replication=True) with every controller but the four
+    that rescan the whole store (kubeadm_controllers) and no device (its
+    Scheduler on the card), a standby_cluster in a process of its own
+    (StandbyProcess) tailing it, synced before the phase writes,
+    KUBEADM_WORKERS nodes joined over the bootstrap token (signed
+    discovery, a node credential from the CSR controllers), then
+    KUBEADM_WORKLOAD's nodes, initial and measured pods created through
+    the secured REST facade (authn, RBAC, admission, audit) into the
+    WAL-backed store, fsynced and replicated, and a
+    KUBEADM_DEPLOYMENT-replica Deployment applied through cmd.kubectl, so
+    the Deployment and ReplicaSet controllers make pods for the card.
+    Fails unless K1 was launched, the defense counters are 0 and no ERROR
+    but the node IPAM controller's CIDR exhaustion is logged. Returns the
+    live rigs for [failover], which stops them and then holds the
+    bindings to check_kubeadm."""
+    import json as _json
+    import os
+    import tempfile
+
+    from kubernetes_tpu_torch.api import objects as v1
+    from kubernetes_tpu_torch.apiserver.client import AuthRESTClient
+    from kubernetes_tpu_torch.cmd import kubectl
+    from kubernetes_tpu_torch.cmd.kubeadm import ADMIN_CONF, init_cluster, join_node
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    errors.check("before kubeadm")
+    controllers = kubeadm_controllers()
+    wl = WORKLOADS[KUBEADM_WORKLOAD]
+    nodes, init, factory = build_workload(wl)
+    # each node registers as the kubelet does (kubelet.make_node_object):
+    # reporting Ready in its first write, so admission does not taint it
+    # not-ready for the node lifecycle controller to lift node by node
+    for nd in nodes:
+        nd.status.conditions = [v1.NodeCondition(type=v1.NODE_READY, status="True")]
+    measured = [factory(i) for i in range(wl.num_measured_pods)]
+    tmp = tempfile.mkdtemp(prefix="kubeadm-smoke-")
+    repl_log = ReplicationLog()
+    collections = FullCollections("primary")
+    metrics.reset()
+    zero_k(fit_kernels)
+    t_start = time.monotonic()
+    h = init_cluster(os.path.join(tmp, "primary"), controllers=controllers, replication=True)
+    sb = None
+    try:
+        applied = bind_ledger(h.store)
+        acked = ack_ledger(h.replication, h.store)
+        init_s = time.monotonic() - t_start
+        if h.scheduler.device.type != "cuda":
+            raise AssertionError(f"[kubeadm] the Scheduler runs on {h.scheduler.device}")
+        t0 = time.monotonic()
+        sb = StandbyProcess(h.replication_address, os.path.join(tmp, "standby"), h.admin_token)
+        sb.wait(STANDBY_SYNCED, timeout=180)
+        sync_s = time.monotonic() - t0
+        conf = _json.load(open(os.path.join(h.data_dir, ADMIN_CONF)))
+        url, token = conf["server"], conf["token"]
+        admin = AuthRESTClient(url, token=token)
+        t0 = time.monotonic()
+        for i in range(KUBEADM_WORKERS):
+            join_node(h.server_url, h.bootstrap_token, f"worker-{i}", handle=h)
+        creds = [
+            bool(admin.get("certificatesigningrequests", "", f"node-csr-worker-{i}").status.certificate)
+            for i in range(KUBEADM_WORKERS)
+        ]
+        join_s = time.monotonic() - t0
+        if not all(creds):
+            raise AssertionError(f"[kubeadm] node credentials issued: {creds}")
+
+        log(f"[kubeadm] control plane up in {init_s:.3f} s, standby process started and "
+            f"synced in {sync_s:.3f} s, {KUBEADM_WORKERS} nodes joined in {join_s:.3f} s")
+        t0 = time.monotonic()
+        lat = create_all(url, token, "nodes", nodes)
+        log(f"[kubeadm] {len(nodes)} nodes created in {time.monotonic() - t0:.3f} s")
+        lat += create_all(url, token, "pods", init)
+        wait_bound(h.store, len(init), "kubeadm", prefix="init-")
+        setup_s = time.monotonic() - t0
+        log(f"[kubeadm] {len(init)} initial pods created and bound, {setup_s:.3f} s "
+            "after the first node create")
+        k1_setup = fit_kernels.fit_mask.launches
+        blocking0 = metrics.counter("scheduler_wave_readbacks_blocking_total")
+        t_first = time.monotonic()
+        burst_lat = create_all(url, token, "pods", measured)
+        t_last = wait_bound(h.store, len(measured), "kubeadm", prefix="pod-")
+        burst_s = t_last - t_first
+        lat += burst_lat
+        blocking = metrics.counter("scheduler_wave_readbacks_blocking_total") - blocking0
+        log(f"[kubeadm] {len(measured)} measured pods bound in {burst_s:.3f} s")
+
+        manifest = {
+            "kind": "Deployment",
+            "metadata": {"name": "smoke-web", "namespace": "default"},
+            "spec": {
+                "replicas": KUBEADM_DEPLOYMENT,
+                "selector": {"app": "smoke-web"},
+                "template": {
+                    "metadata": {"labels": {"app": "smoke-web"}},
+                    "spec": {"containers": [{"name": "web", "image": "nginx",
+                                             "requests": {"cpu": "100m", "memory": "128Mi"}}]},
+                },
+            },
+        }
+        path = os.path.join(tmp, "deployment.json")
+        with open(path, "w") as f:
+            _json.dump(manifest, f)
+        t0 = time.monotonic()
+        # --token=: a random token that starts with "-" is no option
+        rc = kubectl.main(["--server", url, f"--token={token}", "apply", "-f", path])
+        if rc != 0:
+            raise AssertionError(f"[kubeadm] kubectl apply exited {rc}")
+        deadline = time.monotonic() + 300
+
+        def web(p):
+            return p.metadata.labels.get("app") == "smoke-web"
+
+        while True:
+            made = h.store.count("pods", web)
+            bound = h.store.count("pods", lambda p: web(p) and bool(p.spec.node_name))
+            if made >= KUBEADM_DEPLOYMENT and bound == made:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"[kubeadm] the Deployment has {bound}/{made} pods bound, "
+                    f"{KUBEADM_DEPLOYMENT} wanted")
+            time.sleep(0.05)
+        deploy_s = time.monotonic() - t0
+        all_s = time.monotonic() - t_start
+        k1, k2 = count_k(fit_kernels)
+        rate = len(measured) / burst_s
+        cidr = errors.expect("kubeadm", (CIDR_EXHAUSTED,))
+        log(f"[kubeadm] init_cluster(replication=True, {len(controllers)} controllers) on "
+            f"{h.scheduler.device}: "
+            f"init {init_s:.3f} s, standby synced in {sync_s:.3f} s, {KUBEADM_WORKERS} "
+            f"nodes joined with node credentials in {join_s:.3f} s; {KUBEADM_WORKLOAD} through "
+            f"the secured REST facade ({CREATE_THREADS} admin clients): {len(nodes)} nodes and "
+            f"{len(init)} initial pods bound in {setup_s:.3f} s, {len(measured)} measured pods "
+            f"from the first create to the last bind in {burst_s:.3f} s = {rate:.1f} pods/s; "
+            f"{KUBEADM_DEPLOYMENT} Deployment pods bound {deploy_s:.3f} s after kubectl apply; "
+            f"all bound {all_s:.3f} s after init began; create call p50/p99 "
+            f"{np.percentile(lat, 50) * 1e3:.2f}/{np.percentile(lat, 99) * 1e3:.2f} ms over {len(lat)} creates; "
+            f"K1 launches {k1} ({k1_setup} before the burst), K2 launches {k2}; "
+            f"{blocking:.0f} blocking readbacks in the burst; {cidr} node IPAM "
+            f"'{CIDR_EXHAUSTED}' ERRORs; replication ship() p50/p99/max "
+            + "/".join(f"{np.percentile(acked['ship_s'], q) * 1e3:.2f}" for q in (50, 99, 100))
+            + f" ms over {len(acked['ship_s'])} ships, warnings "
+            f"{json.dumps(repl_log.counts, sort_keys=True)}; {collections.summary()}; card {card}")
+        defense_report("kubeadm", card, sched=h.scheduler)
+        if k1 <= 0:
+            raise AssertionError("[kubeadm] the Scheduler never launched K1")
+        # the bindings are checked by check_kubeadm once the primary is
+        # stopped: listing and checking 6,100 pods holds the interpreter
+        # for seconds, which would stall the replication listener's acks
+        return {"h": h, "sb": sb, "tmp": tmp, "repl_log": repl_log,
+                "collections": collections, "k1": k1, "k2": k2,
+                "rate": rate, "all_s": all_s, "applied": applied, "acked": acked,
+                "n_measured": len(measured),
+                "n_pods": len(init) + len(measured) + KUBEADM_DEPLOYMENT,
+                "n_nodes": len(nodes) + KUBEADM_WORKERS}
+    except BaseException:
+        h.stop()
+        if sb is not None:
+            sb.proc.kill()
+            sb.stop()
+        repl_log.close()
+        collections.close()
+        raise
+
+
+def check_kubeadm(kb: dict) -> None:
+    """[kubeadm]'s gate, on the stopped primary's store: every pod bound
+    exactly once, requested <= allocatable on every node, each measured
+    pod in a zone that held an app=bench pod."""
+    store = kb["h"].store
+    pods = store.list("pods")[0]
+    if len(pods) != kb["n_pods"]:
+        raise AssertionError(f"[kubeadm] {len(pods)} pods in the store, want {kb['n_pods']}")
+    check_bindings(store, kb["n_measured"], "kubeadm")
+    check_bound_once(kb["applied"], pods, "kubeadm")
+    log(f"[kubeadm] {len(pods)} pods bound exactly once on {kb['n_nodes']} nodes")
+
+
+def phase_failover(kb: dict, card: str, errors: ErrorLog) -> dict:
+    """[failover] after [kubeadm], on the primary's side: a graceful stop.
+    The writers (the joined nodes' agents, the controllers) stop first;
+    fails unless the follower is then in the sync set with every write
+    acknowledged (after an ejection it resyncs); stops the primary (its
+    Scheduler, replication listener and REST port); checks its bindings
+    (check_kubeadm); hands its acknowledged state (acked_state) to the
+    standby's process, which promotes when its lease lapses and checks the
+    rest (standby_main). Returns the standby's numbers."""
+    import os
+    import shutil
+    from collections import Counter
+
+    from kubernetes_tpu_torch.client.apiserver import NotPrimary
+
+    h, sb, repl_log = kb["h"], kb["sb"], kb["repl_log"]
+    primary_up = True
+    try:
+        for pool in h._joined:
+            pool.stop()
+        h.controller_manager.stop()
+        # stop() does not join the controllers' workers: one still in a
+        # sync finishes it within the workqueue's 0.5 s poll
+        time.sleep(1.0)
+        deadline = time.monotonic() + 60
+        while True:
+            with h.replication._lock:
+                conns = list(h.replication._followers)
+            rv = h.store.resource_version
+            if len(conns) == 1 and conns[0].acked_rv >= rv:
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"[failover] the follower is not in the sync set at rv {rv} 60 s after "
+                    f"the writers stopped ({len(conns)} connected, acked "
+                    f"{[c.acked_rv for c in conns]})")
+            time.sleep(0.05)
+        log(f"[failover] writers stopped, the follower acknowledged rv {rv}; it left the "
+            f"sync set {repl_log.exits()} times in all (replication warnings "
+            f"{json.dumps(repl_log.counts, sort_keys=True)}; {kb['collections'].summary()})")
+        t_stop = time.time()
+        h.stop()
+        primary_up = False
+        check_kubeadm(kb)
+        t0 = time.monotonic()
+        state = acked_state(h.store, kb["acked"])
+        path = os.path.join(kb["tmp"], "primary-state.json")
+        with open(path, "w") as f:
+            json.dump(state, f)
+        log(f"[failover] primary stopped at rv {state['rv']}, last acknowledged rv "
+            f"{state['acked_rv']}: {len(state['objects'])} objects acknowledged, "
+            f"{len(state['unacked'])} written past the last acknowledgement "
+            f"{json.dumps(Counter(k.split('/')[0] for k in state['unacked']), sort_keys=True)}, "
+            f"{len(state['deletes'])} acknowledged deletes (state taken in "
+            f"{time.monotonic() - t0:.3f} s)")
+        sb.send({"t_stop": t_stop, "state": path})
+        r = sb.wait(STANDBY_RESULT, timeout=600)
+        rc = sb.stop()
+        if rc != 0:
+            raise AssertionError(f"[failover] the standby process exited {rc}")
+        cidr = errors.expect("failover", (CIDR_EXHAUSTED,), raised=(NotPrimary,))
+        log(f"[failover] both control planes stopped; {cidr} node IPAM ERRORs on the "
+            "primary after [kubeadm]")
+        return r
+    finally:
+        if primary_up:
+            h.stop()
+        if sb.proc.poll() is None:
+            sb.proc.kill()
+            sb.proc.wait()
+        repl_log.close()
+        kb["collections"].close()
+        shutil.rmtree(kb["tmp"], ignore_errors=True)
+
+
+def standby_main(card: str) -> int:
+    """The standby's process (chip_smoke.py --standby, started by
+    StandbyProcess; its settings are the first line of its standard
+    input): standby_cluster() with [kubeadm]'s controllers and no device
+    (the promoted Scheduler on the card), synced, then [failover]'s
+    standby side. It takes the promoted store's rv of every object before
+    the promoted control plane starts, reads the primary's acknowledged
+    state (acked_state) once the primary has stopped, and fails unless it
+    was promoted at or past the last acknowledged rv (a follower out of
+    the sync set does not promote), and holds every acknowledged object at its rv and wire form and no
+    acknowledged delete undone; then FAILOVER_PODS pods created through
+    the promoted REST port are each bound exactly once by the promoted
+    Scheduler with K1 launched and requested <= allocatable. Prints its
+    numbers after STANDBY_RESULT."""
+    from kubernetes_tpu_torch.apiserver.client import AuthRESTClient
+    from kubernetes_tpu_torch.cmd.kubeadm import standby_cluster
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+
+    cfg = json.loads(sys.stdin.readline())
+    fit_kernels.build_all()  # built by the first process: loads the libraries
+    torch.zeros(1, device="cuda")  # the CUDA context, before the promotion needs it
+    _, _, factory = build_workload(WORKLOADS[KUBEADM_WORKLOAD])
+    errors = ErrorLog()
+    repl_log = ReplicationLog()
+    collections = FullCollections("standby")
+    zero_k(fit_kernels)
+    sb = standby_cluster(tuple(cfg["addr"]), cfg["data_dir"], lease_s=STANDBY_LEASE_S,
+                         controllers=kubeadm_controllers(), admin_token=cfg["token"])
+    at = {}
+    inner = sb.follower.on_promote
+
+    def on_promote(server):
+        # the promoted store before its control plane starts: nothing has
+        # written to it since the last replicated record
+        at["t"] = time.time()
+        at["exits"] = repl_log.exits()
+        at["rv"] = server.resource_version
+        at["objects"] = {key: obj.metadata.resource_version for key, obj in store_objects(server)}
+        inner(server)
+
+    sb.follower.on_promote = on_promote
+    try:
+        if not sb.follower.wait_synced(60.0):
+            raise AssertionError("[kubeadm] the standby never synced")
+        print(STANDBY_SYNCED + json.dumps({}), flush=True)
+        msg = json.loads(sys.stdin.readline())  # the primary has stopped
+        if not sb.wait_promoted(STANDBY_LEASE_S * 10 + 60):
+            raise AssertionError("[failover] the standby never promoted")
+        promoted_s = at["t"] - msg["t_stop"]
+        c = sb.cluster
+        if c is None:
+            raise AssertionError(f"[failover] the promotion failed: {sb.promote_error}")
+        admin = AuthRESTClient(c.server_url, token=c.admin_token)
+        deadline = time.monotonic() + 60
+        while True:
+            try:
+                admin.list("namespaces")
+                break
+            except Exception:
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
+        serving_s = time.time() - msg["t_stop"]
+        if c.scheduler.device.type != "cuda":
+            raise AssertionError(f"[failover] the promoted Scheduler runs on {c.scheduler.device}")
+
+        with open(msg["state"]) as f:
+            state = json.load(f)
+        promoted = at["objects"]
+        lost = [k for k, (rv, _) in state["objects"].items() if promoted.get(k) != rv]
+        undeleted = [k for k, rv in state["deletes"].items() if promoted.get(k, rv) < rv]
+        unknown = [k for k in promoted if k not in state["objects"]
+                   and k not in state["deletes"] and k not in state["unacked"]]
+        # the wire form of every acknowledged object the promoted plane
+        # has not written since (a write bumps the rv)
+        now = dict(store_objects(c.store))
+        same = [k for k, (rv, _) in state["objects"].items()
+                if k in now and now[k].metadata.resource_version == rv]
+        differ = [k for k in same if object_digest(now[k]) != state["objects"][k][1]]
+        log(f"[failover] the standby: {at['exits']} exits from the sync set before the "
+            f"promotion; promoted at rv {at['rv']} (the primary's last acknowledged rv "
+            f"{state['acked_rv']}, its last rv {state['rv']}) holding "
+            f"{len(state['objects']) - len(lost)}/{len(state['objects'])} acknowledged "
+            f"objects at their rv, {len(same) - len(differ)}/{len(same)} not written "
+            f"since with the same wire form, {len(undeleted)} acknowledged deletes undone, "
+            f"{len(unknown)} objects the primary never acknowledged or refused; replication "
+            f"warnings {json.dumps(repl_log.counts, sort_keys=True)}; "
+            f"{collections.summary()}")
+        if at["rv"] < state["acked_rv"] or lost or differ or undeleted or unknown:
+            raise AssertionError(
+                "[failover] the promoted store lost acknowledged writes, e.g. "
+                f"{(lost + differ + undeleted + unknown)[:5]}")
+
+        applied = bind_ledger(c.store)
+        k1_promote = fit_kernels.fit_mask.launches
+        post = []
+        for i in range(FAILOVER_PODS):
+            p = factory(i)
+            p.metadata.name = f"post-{i}"
+            post.append(p)
+        t0 = time.monotonic()
+        lat = create_all(c.server_url, c.admin_token, "pods", post)
+        t_bound = wait_bound(c.store, FAILOVER_PODS, "failover", prefix="post-")
+        bound_s = t_bound - t0
+        k1, k2 = count_k(fit_kernels)
+        cidr = errors.expect("failover", (CIDR_EXHAUSTED,))
+        log(f"[failover] standby promoted {promoted_s:.3f} s after the primary's stop "
+            f"(lease {STANDBY_LEASE_S} s), serving on its REST port {serving_s:.3f} s after "
+            f"it; {FAILOVER_PODS} pods created through it (create p50/p99 "
+            f"{np.percentile(lat, 50) * 1e3:.2f}/{np.percentile(lat, 99) * 1e3:.2f} ms) "
+            f"all bound in {bound_s:.3f} s = {FAILOVER_PODS / bound_s:.1f} pods/s by the "
+            f"promoted Scheduler on {c.scheduler.device}; K1 launches {k1} "
+            f"({k1_promote} by the promotion's start), K2 launches {k2}; {cidr} node "
+            f"IPAM '{CIDR_EXHAUSTED}' ERRORs; card {card}")
+        defense_report("failover", card, sched=c.scheduler)
+        if k1 <= 0:
+            raise AssertionError("[failover] the promoted Scheduler never launched K1")
+        pods = c.store.list("pods")[0]
+        check_capacity(c.store, "failover")
+        check_bound_once(applied, [p for p in pods if p.metadata.name.startswith("post-")], "failover")
+        log(f"[failover] checked from the promoted store: {len(pods)} pods bound, "
+            f"requested <= allocatable on every node, the {FAILOVER_PODS} new pods bound once")
+    finally:
+        sb.stop()
+        repl_log.close()
+        collections.close()
+    # stop() does not join the controllers' workers: one still in a sync
+    # finishes it within the workqueue's 0.5 s poll
+    time.sleep(1.0)
+    errors.expect("failover", (CIDR_EXHAUSTED,))
+    print(STANDBY_RESULT + json.dumps({
+        "k1": k1, "k2": k2, "promoted_s": promoted_s, "serving_s": serving_s,
+        "bound_s": bound_s}), flush=True)
+    return 0
+
+
+def phase_durability(card: str, errors: ErrorLog) -> dict:
+    """[durability] run_durability_benchmark() at the reference's defaults
+    (50,000 records in 64-record group commits without fsync, their cold
+    recovery, 2,000 records with fsync): append rates, fsync p50/p99,
+    recovery time. Fails unless the native group-commit sink
+    (native/walsink.cpp) was built and used, and recovery found every
+    record. Touches no device."""
+    from kubernetes_tpu_torch.perf.harness import run_durability_benchmark
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    # the reference's bench reads the fsync histogram's `.count`, which
+    # Histogram does not have (`.n`): it raises once an fsynced append
+    # ([kubeadm]'s store) made that histogram. Start from empty metrics,
+    # as the bench does in a fresh process.
+    metrics.reset()
+    r = run_durability_benchmark()
+    log(f"[durability] WAL, {r.n_records} records in batches of {r.batch}: appends "
+        f"{r.append_nofsync_per_s:.1f}/s without fsync, {r.append_fsync_per_s:.1f}/s with "
+        f"fsync (fsync p50/p99 {r.fsync_p50_ms:.3f}/{r.fsync_p99_ms:.3f} ms); recovery "
+        f"{r.recovery_s:.3f} s = {r.recovery_records_per_s:.1f} records/s to rv "
+        f"{r.recovered_rv}; native_sink {r.native_sink}; card {card}")
+    errors.check("durability")
+    if not r.native_sink:
+        raise AssertionError("[durability] the native WAL sink did not build: the "
+                             "Python fallback ran")
+    if r.recovered_rv != r.n_records:
+        raise AssertionError(f"[durability] recovered rv {r.recovered_rv} of {r.n_records}")
+    return {"native_sink": r.native_sink}
+
+
+CONTROL_PLANE_RESULT = "[control-plane result] "
+
+
+def control_plane_main(card: str) -> int:
+    """The control-plane phases, [kubeadm], [failover] and [durability],
+    in a process of their own (run_control_plane starts it): a control
+    plane is a process of its own, and after the earlier phases' 380 s
+    the same interpreter bound the measured burst in 712 s where a fresh
+    one took 100 s. No thread left by an earlier phase explains it: before
+    [kubeadm] the first process holds one Python thread besides the main
+    one ([cmd]'s health endpoint, which cmd.scheduler.run keeps for the
+    process's life), no thread uses CPU while the main one sleeps, and a
+    pure-Python loop runs no slower than at the start (thread_report).
+    Prints each phase's lines and, last, the kernels' launches on its two
+    paths after CONTROL_PLANE_RESULT."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+
+    fit_kernels.build_all()  # built by the parent: loads the libraries
+    errors = ErrorLog()
+    kb = phase_kubeadm(card, errors)
+    kubeadm = {"k1": kb["k1"], "k2": kb["k2"]}
+    failover = phase_failover(kb, card, errors)
+    del kb
+    phase_durability(card, errors)
+    print(CONTROL_PLANE_RESULT + json.dumps({
+        "kubeadm": kubeadm, "failover": {"k1": failover["k1"], "k2": failover["k2"]},
+    }), flush=True)
+    return 0
+
+
+def run_control_plane(card: str) -> tuple:
+    """Runs control_plane_main in a child process (this script with
+    --control-plane) in a process group of its own, with the standby's
+    process it starts, echoes its output, and returns the K1/K2 launches
+    of [kubeadm] and [failover]. Fails unless the child exits 0 within
+    900 s; kills the group at the end in any case."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--control-plane"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        start_new_session=True,
+    )
+
+    def kill_group():
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+
+    result = None
+    timer = threading.Timer(900, kill_group)
+    timer.start()
+    try:
+        for line in proc.stdout:
+            if line.startswith(CONTROL_PLANE_RESULT):
+                result = json.loads(line[len(CONTROL_PLANE_RESULT):])
+            else:
+                print(line, end="", flush=True)
+        rc = proc.wait()
+    finally:
+        timer.cancel()
+        kill_group()
+        proc.wait()
+    if rc != 0 or result is None:
+        raise AssertionError(f"the control-plane phases failed (exit code {rc})")
+    return result["kubeadm"], result["failover"]
+
+
+def thread_report(what: str) -> None:
+    """Lists every thread of this process (/proc/self/task, named by
+    threading where it is a Python thread) with the CPU each used over 2 s
+    in which the main thread sleeps, times a fixed pure-Python loop
+    (slower when other threads hold the interpreter lock) and counts the
+    objects the cyclic collector tracks (what a full collection walks):
+    what earlier phases leave behind."""
+    import os
+    from collections import Counter
+
+    def ticks():
+        out = {}
+        for tid in os.listdir("/proc/self/task"):
+            try:
+                with open(f"/proc/self/task/{tid}/stat") as f:
+                    stat = f.read()
+                with open(f"/proc/self/task/{tid}/comm") as f:
+                    comm = f.read().strip()
+            except OSError:
+                continue
+            fields = stat[stat.rindex(")") + 2:].split()
+            out[int(tid)] = (comm, int(fields[11]) + int(fields[12]))
+        return out
+
+    names = {t.native_id: t.name for t in threading.enumerate()}
+    hz = os.sysconf("SC_CLK_TCK")
+    a = ticks()
+    time.sleep(2.0)
+    b = ticks()
+    busy = {f"{names.get(tid, comm)} ({tid})": round((n - a.get(tid, (comm, 0))[1]) * 1e3 / hz)
+            for tid, (comm, n) in b.items() if n > a.get(tid, (comm, 0))[1]}
+    t0 = time.perf_counter()
+    s = 0
+    for i in range(3_000_000):
+        s += i
+    loop_s = time.perf_counter() - t0
+    kinds = Counter(re.sub(r"[-_ ]?\d+$", "", n) for n in names.values())
+    t0 = time.perf_counter()
+    gc.collect()
+    full_s = time.perf_counter() - t0
+    tracked = len(gc.get_objects())
+    log(f"[threads] {what}: {len(b)} threads, {len(names)} of them Python "
+        f"{json.dumps(dict(kinds), sort_keys=True)}; CPU ms over 2 s with the main thread "
+        f"asleep {json.dumps(busy, sort_keys=True)}; a 3,000,000-step Python loop "
+        f"{loop_s:.3f} s; {tracked} objects tracked by the collector, a full "
+        f"collection {full_s * 1e3:.1f} ms")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--control-plane", action="store_true",
+                    help=argparse.SUPPRESS)  # the child of run_control_plane
+    ap.add_argument("--standby", action="store_true",
+                    help=argparse.SUPPRESS)  # the child of StandbyProcess
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    if args.control_plane:
+        return control_plane_main(card_line())
+    if args.standby:
+        return standby_main(card_line())
+    t_start = time.monotonic()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -2095,6 +3007,7 @@ def main(argv=None) -> int:
     card = card_line()
     log(f"[device] {kind}; {torch.cuda.device_count()} visible; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}; nvidia-smi: {card}")
+    thread_report("at the start")
 
     from kubernetes_tpu_torch.ops import fit_kernels
 
@@ -2162,8 +3075,13 @@ def main(argv=None) -> int:
     hetero = phase_hetero(device, card, errors)
     defrag = phase_defrag(device, card, errors)
     hardpair = phase_hardpair(device, card, errors)
+    log(f"[time] {time.monotonic() - t_start:.1f} s before [kubeadm]")
+    thread_report("before [kubeadm]")
+    kubeadm, failover = run_control_plane(card)
+    log(f"[time] {time.monotonic() - t_start:.1f} s after [durability]")
     phase_guards(device, card, errors)
     phase_device_loss(device, card, errors)
+    log(f"[time] {time.monotonic() - t_start:.1f} s in all")
 
     def launches(k):
         return {
@@ -2179,6 +3097,8 @@ def main(argv=None) -> int:
             "launches_tuner": tuner[k],
             "launches_gym": gym[k],
             "launches_cmd": cmd[k],
+            "launches_kubeadm": kubeadm[k],
+            "launches_failover": failover[k],
         }
 
     kernels = {

@@ -13,7 +13,11 @@ Chrome trace. The capacity-planning entries ``run_autoscaler_benchmark``,
 ``ClusterAutoscaler`` and ``Descheduler`` (copies) over the same
 Scheduler. ``run_tuner_benchmark`` drives the port's policy gym
 (``tuner/``) through the reference's workload-mix flip. The read-path,
-serving and durability benchmarks wait for their modules.
+serving, relay-serving and durability benchmarks
+(``run_readpath_benchmark``, ``run_serving_benchmark``,
+``run_relay_serving_benchmark``, ``run_durability_benchmark``) touch no
+device and are the reference's (``tests/test_torch_copies.py``); their
+child processes run the port's ``testing/netchaos_procs.py``.
 
 Every entry counts the data-plane defense of the whole run into its
 result: the auditor's passes and skipped passes by reason, the drift rows
@@ -1395,3 +1399,782 @@ def _wait_all_scheduled(server: APIServer, count: int, timeout_s: float) -> None
             return
         time.sleep(0.05)
     raise TimeoutError("init pods did not all schedule")
+
+
+@dataclass
+class ReadpathBenchResult:
+    """The `readpath` bench workload: N hollow informers (watch-cache
+    fan-out clients) attached to one apiserver while an event storm
+    flows. Delivery latency is enqueue→drain on a hot-sampled subset;
+    fan-out throughput counts every queued client delivery."""
+
+    n_informers: int
+    n_events: int
+    duration_s: float
+    fanout_deliveries: int
+    fanout_deliveries_per_s: float
+    delivery_p50_ms: float
+    delivery_p99_ms: float
+    store_watchers: int  # the scale contract: must be 1
+    replays: int
+    slow_evicted: int
+
+
+def run_readpath_benchmark(
+    n_informers: int = 10000,
+    n_events: int = 200,
+    n_sampled: int = 64,
+    drainers: int = 4,
+) -> ReadpathBenchResult:
+    """10k hollow informers on ONE store watch: measure p99 watch-delivery
+    latency and fan-out throughput through the watch cache. Informers are
+    hollow the same way kubemark nodes are — real fan-out queues, a
+    shared drain pool instead of 10k threads."""
+    import threading
+
+    from ..api.objects import Container, ObjectMeta, PodSpec
+    from ..apiserver.cacher import Cacher
+    from ..runtime.watch import BOOKMARK
+
+    server = APIServer()
+    cacher = Cacher(server, bookmark_period_s=1.0)
+    kc = cacher.cache_for("pods")
+    r0 = metrics.counter("watch_cache_replays_total", {"kind": "pods"})
+    s0 = metrics.counter(
+        "watch_cache_slow_watchers_evicted_total", {"kind": "pods"}
+    )
+    watchers = [cacher.watch("pods") for _ in range(n_informers)]
+    sampled = watchers[:n_sampled]
+    latencies: List[float] = []
+    lat_lock = threading.Lock()
+    stop = threading.Event()
+
+    def drain_loop(ws):
+        while not stop.is_set():
+            idle = True
+            for w in ws:
+                ev = w.get(timeout=0)
+                while ev is not None:
+                    idle = False
+                    if ev.type != BOOKMARK and ev.ts:
+                        with lat_lock:
+                            latencies.append(time.monotonic() - ev.ts)
+                    ev = w.get(timeout=0)
+            if idle:
+                time.sleep(0.001)
+
+    chunk = max(1, len(sampled) // drainers)
+    threads = [
+        threading.Thread(
+            target=drain_loop, args=(sampled[i : i + chunk],), daemon=True
+        )
+        for i in range(0, len(sampled), chunk)
+    ]
+    for t in threads:
+        t.start()
+    t0 = time.monotonic()
+    for i in range(n_events):
+        server.create(
+            "pods",
+            Pod(
+                metadata=ObjectMeta(name=f"rp-{i}"),
+                spec=PodSpec(containers=[Container(requests={"cpu": "1m"})]),
+            ),
+        )
+    # dispatch is synchronous into every client queue: once the cache rv
+    # catches the store rv, every delivery is enqueued
+    deadline = time.monotonic() + 60.0
+    while kc.current_rv < server.resource_version and time.monotonic() < deadline:
+        time.sleep(0.001)
+    duration = time.monotonic() - t0
+    # let the sampled drainers finish their queues for honest percentiles
+    sdeadline = time.monotonic() + 10.0
+    while time.monotonic() < sdeadline:
+        with lat_lock:
+            if len(latencies) >= n_events * len(sampled):
+                break
+        time.sleep(0.005)
+    stop.set()
+    for t in threads:
+        t.join(timeout=2.0)
+    store_watchers = server.watcher_count("pods")
+    with lat_lock:
+        lat = sorted(latencies)
+    p50 = lat[int(0.5 * len(lat))] * 1e3 if lat else 0.0
+    p99 = lat[min(int(0.99 * len(lat)), len(lat) - 1)] * 1e3 if lat else 0.0
+    deliveries = n_events * n_informers
+    for w in watchers:
+        w.stop()
+    cacher.stop()
+    return ReadpathBenchResult(
+        n_informers=n_informers,
+        n_events=n_events,
+        duration_s=duration,
+        fanout_deliveries=deliveries,
+        fanout_deliveries_per_s=deliveries / duration if duration else 0.0,
+        delivery_p50_ms=p50,
+        delivery_p99_ms=p99,
+        store_watchers=store_watchers,
+        replays=int(
+            metrics.counter("watch_cache_replays_total", {"kind": "pods"}) - r0
+        ),
+        slow_evicted=int(
+            metrics.counter(
+                "watch_cache_slow_watchers_evicted_total", {"kind": "pods"}
+            )
+            - s0
+        ),
+    )
+
+
+@dataclass
+class ServingBenchResult:
+    """The `serving` bench workload: a MULTI-PROCESS frontend fleet
+    behind the balancer — bind RTT through the pooled REST chain
+    (client -> balancer -> frontend -> primary) and watch fan-out
+    across hollow watchers attached to the frontends' own caches."""
+
+    n_frontends: int
+    n_watchers: int
+    n_events: int
+    n_binds: int
+    duration_s: float
+    bind_p50_ms: float
+    bind_p99_ms: float
+    delivery_p99_ms: float
+    fanout_deliveries: int
+    fanout_deliveries_per_s: float
+    conn_opened: int
+    conn_reused: int
+
+
+def run_serving_benchmark(
+    n_watchers: int = 100_000,
+    n_frontends: int = 2,
+    n_pods: int = 100,
+    timeout_s: float = 240.0,
+) -> ServingBenchResult:
+    """Serving-tier fleet benchmark, real OS processes end to end.
+
+    A primary apiserver and n_frontends stateless frontends are spawned
+    as child processes (testing/netchaos_procs.py roles); each frontend
+    attaches n_watchers/n_frontends hollow watchers to its OWN watch
+    cache (the kubemark discipline: real fan-out queues, a sampled drain
+    pool). The bench then drives n_pods creates + n_pods binds through
+    an in-process LoadBalancerProxy on ONE pooled RESTClient, timing
+    every bind POST round trip, and reads each frontend's delivery
+    stats back over its /bench-stats endpoint."""
+    import json as _json
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import threading
+    import urllib.request
+
+    from ..api.objects import Binding, Container, Node, NodeSpec, NodeStatus, ObjectMeta, PodSpec
+    from ..apiserver.client import (
+        COUNTER_CONN_OPENED,
+        COUNTER_CONN_REUSED,
+        RESTClient,
+    )
+    from ..testing.netchaos import LoadBalancerProxy
+
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    procs = []
+    tmp_paths: List[str] = []  # stderr logs + ledger, removed in finally
+
+    def spawn(args, tag):
+        err = tempfile.NamedTemporaryFile(
+            "w+", prefix=f"serving-bench-{tag}-", suffix=".log", delete=False
+        )
+        tmp_paths.append(err.name)
+        p = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.testing.netchaos_procs",
+             *args],
+            cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+        )
+        err.close()  # the child holds its own duped fd
+        procs.append(p)
+        lines: List[str] = []
+
+        def read():
+            for line in p.stdout:
+                lines.append(line.strip())
+
+        threading.Thread(target=read, daemon=True).start()
+        deadline = time.monotonic() + 60.0
+        while time.monotonic() < deadline:
+            ready = [l for l in lines if l.startswith("READY")]
+            if ready:
+                return ready[0].split()
+            if p.poll() is not None:
+                raise RuntimeError(f"{tag} exited rc={p.returncode}")
+            time.sleep(0.05)
+        raise TimeoutError(f"{tag} never became ready")
+
+    per_frontend = max(1, n_watchers // n_frontends)
+    lb = None
+    client = None
+    try:
+        with tempfile.NamedTemporaryFile(suffix=".jsonl", delete=False) as lf:
+            ledger = lf.name
+        tmp_paths.append(ledger)
+        ready = spawn(["apiserver", "--port", "0", "--ledger", ledger],
+                      "primary")
+        primary_port = int(ready[2])
+        primary_url = f"http://127.0.0.1:{primary_port}"
+        stats_ports = []
+        backends = []
+        for i in range(n_frontends):
+            r = spawn(
+                ["frontend", "--primary", primary_url,
+                 "--hollow-watchers", str(per_frontend)],
+                f"frontend-{i}",
+            )
+            backends.append(("127.0.0.1", int(r[2])))
+            stats_ports.append(int(r[3]))
+        lb = LoadBalancerProxy(backends).start()
+        client = RESTClient(f"http://127.0.0.1:{lb.port}", timeout=30.0)
+        client.create(
+            "nodes",
+            Node(
+                metadata=ObjectMeta(name="bench-n1", namespace=""),
+                spec=NodeSpec(),
+                status=NodeStatus(
+                    allocatable={"cpu": "512", "memory": "2Ti", "pods": 100000}
+                ),
+            ),
+        )
+        opened0 = metrics.counter(COUNTER_CONN_OPENED)
+        reused0 = metrics.counter(COUNTER_CONN_REUSED)
+        t0 = time.monotonic()
+        bind_lat: List[float] = []
+        for i in range(n_pods):
+            client.create(
+                "pods",
+                Pod(
+                    metadata=ObjectMeta(name=f"sv-{i}", namespace="default"),
+                    spec=PodSpec(
+                        containers=[Container(requests={"cpu": "1m"})]
+                    ),
+                ),
+            )
+        for i in range(n_pods):
+            b = Binding(
+                pod_name=f"sv-{i}", pod_namespace="default",
+                target_node="bench-n1",
+            )
+            bt0 = time.monotonic()
+            errs = client.bind_pods([b])
+            if errs[0] is None:
+                bind_lat.append(time.monotonic() - bt0)
+        n_events = 2 * n_pods  # each pod: one ADDED + one bind MODIFIED
+
+        def stats(port):
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/", timeout=10
+            ) as r:
+                return _json.loads(r.read())
+
+        # the storm ends when every frontend's cache consumed every event
+        deadline = time.monotonic() + timeout_s
+        snaps = []
+        while time.monotonic() < deadline:
+            snaps = [stats(p) for p in stats_ports]
+            if all(s["cache_events"] >= n_events for s in snaps):
+                break
+            time.sleep(0.1)
+        duration = time.monotonic() - t0
+        # drain window: sampled watchers finish their queues for honest
+        # percentiles
+        sample_target = sum(s["sampled"] for s in snaps) * n_events
+        drain_deadline = time.monotonic() + 20.0
+        while time.monotonic() < drain_deadline:
+            snaps = [stats(p) for p in stats_ports]
+            if sum(s["drained"] for s in snaps) >= sample_target:
+                break
+            time.sleep(0.1)
+        deliveries = sum(
+            int(s["cache_events"]) * s["watchers"] for s in snaps
+        )
+        blat = sorted(bind_lat)
+        return ServingBenchResult(
+            n_frontends=n_frontends,
+            n_watchers=sum(s["watchers"] for s in snaps),
+            n_events=n_events,
+            n_binds=len(bind_lat),
+            duration_s=duration,
+            bind_p50_ms=(blat[len(blat) // 2] * 1e3) if blat else 0.0,
+            bind_p99_ms=(
+                blat[min(int(0.99 * len(blat)), len(blat) - 1)] * 1e3
+                if blat
+                else 0.0
+            ),
+            delivery_p99_ms=max(
+                (s["delivery_p99_ms"] for s in snaps), default=0.0
+            ),
+            fanout_deliveries=deliveries,
+            fanout_deliveries_per_s=(
+                deliveries / duration if duration else 0.0
+            ),
+            conn_opened=int(metrics.counter(COUNTER_CONN_OPENED) - opened0),
+            conn_reused=int(metrics.counter(COUNTER_CONN_REUSED) - reused0),
+        )
+    finally:
+        if client is not None:
+            client.close()
+        if lb is not None:
+            lb.stop()
+        for p in procs:
+            try:
+                p.kill()
+                p.wait(timeout=10)
+            except Exception:
+                pass
+        for path in tmp_paths:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+
+
+@dataclass
+class RelayServingBenchResult:
+    """The relay `serving` bench workload (ISSUE 20): a million-watcher
+    TLS fan-out through the shared-memory watch relay. A primary plus
+    n_frontends frontend processes run as real OS processes; each
+    frontend publishes frames once into its ring and relay_workers
+    SO_REUSEPORT worker processes carry the hollow watcher load, with a
+    handful of REAL TLS watch clients sampled through a balancer for
+    honest end-to-end latency percentiles. CPU seconds are per process
+    so the flatness claim (frontend pays per FRAME, not per client) is
+    checkable across watcher scales."""
+
+    n_frontends: int
+    n_relay_workers: int  # total across frontends
+    n_watchers: int  # hollow + real, as registered by the workers
+    n_real_clients: int
+    n_events: int
+    n_binds: int
+    tls: bool
+    duration_s: float
+    bind_p50_ms: float
+    bind_p99_ms: float
+    watch_p50_ms: float  # bind POST -> real TLS client sees the MODIFIED
+    watch_p99_ms: float
+    fanout_deliveries: int  # conservative: events x watchers (no bookmarks)
+    fanout_deliveries_per_s: float
+    deliveries_measured: int  # worker-counter delta (includes bookmarks)
+    evicted_slow: int
+    shed: int
+    frontend_cpu_s: List[float]  # per frontend process, storm window only
+    worker_cpu_s: List[float]  # per relay worker process, storm window
+
+
+def _proc_cpu_s(pid: int) -> float:
+    """utime+stime of one process from /proc (Linux), seconds."""
+    import os
+
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        hz = os.sysconf("SC_CLK_TCK")
+        return (int(fields[11]) + int(fields[12])) / hz
+    except (OSError, IndexError, ValueError):
+        return 0.0
+
+
+def run_relay_serving_benchmark(
+    n_watchers: int = 1_000_000,
+    n_frontends: int = 2,
+    relay_workers: int = 2,
+    n_real_clients: int = 32,
+    n_pods: int = 100,
+    tls: bool = True,
+    timeout_s: float = 600.0,
+) -> RelayServingBenchResult:
+    """Million-client serving through the watch relay, TLS end to end.
+
+    Topology: primary apiserver -> n_frontends stateless frontends (each
+    with --relay-workers fan-out processes over its shared-memory ring)
+    -> hollow watchers in the workers plus n_real_clients genuine TLS
+    watch streams through a LoadBalancerProxy over the relay ports.
+    The bench drives n_pods creates + binds through the frontend REST
+    hop (also TLS), then waits until every worker's dispatch has fanned
+    the last bound rv out to all its clients. Deliveries are counted
+    frames x subscribers — the economics the relay exists for."""
+    import json as _json
+    import math
+    import os
+    import subprocess
+    import sys
+    import tempfile
+    import threading
+    import urllib.request
+
+    from ..api.objects import Binding, Container, Node, NodeSpec, NodeStatus, ObjectMeta, PodSpec
+    from ..apiserver.client import RESTClient
+    from ..runtime.watch import BOOKMARK
+    from ..testing.netchaos import LoadBalancerProxy
+
+    cert = key = ""
+    if tls:
+        from ..testing.tlsutil import ensure_self_signed
+
+        cert, key = ensure_self_signed()
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    env = {**os.environ, "JAX_PLATFORMS": "cpu"}
+    procs = []
+    tmp_paths: List[str] = []
+
+    def spawn(args, tag):
+        err = tempfile.NamedTemporaryFile(
+            "w+", prefix=f"relay-bench-{tag}-", suffix=".log", delete=False
+        )
+        tmp_paths.append(err.name)
+        p = subprocess.Popen(
+            [sys.executable, "-m", "kubernetes_tpu_torch.testing.netchaos_procs",
+             *args],
+            cwd=repo, stdout=subprocess.PIPE, stderr=err, text=True, env=env,
+        )
+        err.close()
+        procs.append(p)
+        lines: List[str] = []
+
+        def read():
+            for line in p.stdout:
+                lines.append(line.strip())
+
+        threading.Thread(target=read, daemon=True).start()
+        deadline = time.monotonic() + 120.0
+        while time.monotonic() < deadline:
+            ready = [l for l in lines if l.startswith("READY")]
+            if ready:
+                return p, ready[0].split()
+            if p.poll() is not None:
+                raise RuntimeError(f"{tag} exited rc={p.returncode}")
+            time.sleep(0.05)
+        raise TimeoutError(f"{tag} never became ready")
+
+    # round the hollow split UP so worker-level floor division never
+    # undershoots the requested watcher count
+    target_hollow = max(0, n_watchers - n_real_clients)
+    per_frontend = math.ceil(target_hollow / n_frontends)
+    per_frontend = math.ceil(per_frontend / max(relay_workers, 1)) * max(
+        relay_workers, 1
+    )
+    scheme = "https" if tls else "http"
+    lb = rlb = None
+    client = None
+    real_clients: List = []
+    real_watchers: List = []
+    try:
+        with tempfile.NamedTemporaryFile(suffix=".jsonl", delete=False) as lf:
+            ledger = lf.name
+        tmp_paths.append(ledger)
+        _p, ready = spawn(
+            ["apiserver", "--port", "0", "--ledger", ledger], "primary"
+        )
+        primary_url = f"http://127.0.0.1:{int(ready[2])}"
+        fe_pids: List[int] = []
+        fe_ports: List[int] = []
+        stats_ports: List[int] = []
+        relay_ports: List[int] = []
+        for i in range(n_frontends):
+            fargs = [
+                "frontend", "--primary", primary_url,
+                "--relay-workers", str(relay_workers),
+                "--relay-hollow", str(per_frontend),
+            ]
+            if tls:
+                fargs += ["--tls-cert", cert, "--tls-key", key]
+            p, r = spawn(fargs, f"frontend-{i}")
+            fe_pids.append(p.pid)
+            fe_ports.append(int(r[2]))
+            stats_ports.append(int(r[3]))
+            relay_ports.append(int(r[4]))
+        lb = LoadBalancerProxy([("127.0.0.1", p) for p in fe_ports]).start()
+        rlb = LoadBalancerProxy(
+            [("127.0.0.1", p) for p in relay_ports]
+        ).start()
+        client = RESTClient(f"{scheme}://127.0.0.1:{lb.port}", timeout=30.0)
+        client.create(
+            "nodes",
+            Node(
+                metadata=ObjectMeta(name="bench-n1", namespace=""),
+                spec=NodeSpec(),
+                status=NodeStatus(
+                    allocatable={"cpu": "512", "memory": "2Ti", "pods": 100000}
+                ),
+            ),
+        )
+
+        def stats(port):
+            with urllib.request.urlopen(
+                f"http://127.0.0.1:{port}/", timeout=10
+            ) as r:
+                return _json.loads(r.read())
+
+        # real TLS watch clients through the relay balancer: each one is
+        # a genuine https stream terminated by a relay worker; they time
+        # bind POST -> observed MODIFIED for end-to-end percentiles
+        bind_t0: dict = {}
+        wlat: List[float] = []
+        wlock = threading.Lock()
+
+        def drain(w, remaining):
+            while remaining[0] > 0:
+                ev = w.get(timeout=5.0)
+                if ev is None:
+                    if w.stopped:
+                        return
+                    continue
+                if ev.type == BOOKMARK:
+                    continue
+                name = ev.object.metadata.name
+                if getattr(ev.object.spec, "node_name", "") and name in bind_t0:
+                    with wlock:
+                        wlat.append(time.monotonic() - bind_t0[name])
+                    remaining[0] -= 1
+
+        for _ in range(n_real_clients):
+            c = RESTClient(f"{scheme}://127.0.0.1:{rlb.port}", timeout=30.0)
+            real_clients.append(c)
+            real_watchers.append(c.watch("pods", 0))
+        remainders = [[n_pods] for _ in real_watchers]
+        for w, rem in zip(real_watchers, remainders):
+            threading.Thread(target=drain, args=(w, rem), daemon=True).start()
+
+        # pre-storm baselines: idle bookmark heartbeats already tick the
+        # hollow counters, and frontends burned CPU warming up
+        base = [stats(p) for p in stats_ports]
+        base_delivered = sum(s["delivered"] for s in base)
+        base_evicted = sum(s["evicted_slow"] for s in base)
+        base_shed = sum(s["shed"] for s in base)
+        base_fe_cpu = [_proc_cpu_s(pid) for pid in fe_pids]
+        base_w_cpu = {
+            w["pid"]: w["cpu_s"] for s in base for w in s["per_worker"]
+        }
+        actual_hollow = sum(s["hollow"] for s in base)
+
+        t0 = time.monotonic()
+        bind_lat: List[float] = []
+        for i in range(n_pods):
+            client.create(
+                "pods",
+                Pod(
+                    metadata=ObjectMeta(name=f"rsv-{i}", namespace="default"),
+                    spec=PodSpec(
+                        containers=[Container(requests={"cpu": "1m"})]
+                    ),
+                ),
+            )
+        for i in range(n_pods):
+            b = Binding(
+                pod_name=f"rsv-{i}", pod_namespace="default",
+                target_node="bench-n1",
+            )
+            bind_t0[f"rsv-{i}"] = time.monotonic()
+            errs = client.bind_pods([b])
+            if errs[0] is None:
+                bind_lat.append(time.monotonic() - bind_t0[f"rsv-{i}"])
+        n_events = 2 * n_pods
+        final_rv = client.get(
+            "pods", "default", f"rsv-{n_pods - 1}"
+        ).metadata.resource_version
+
+        # storm over when every worker's dispatch has fanned the final
+        # bound rv out (hollow counters update in the same dispatch pass)
+        deadline = time.monotonic() + timeout_s
+        snaps = base
+        while time.monotonic() < deadline:
+            snaps = [stats(p) for p in stats_ports]
+            if all(
+                w["kinds"].get("pods", {}).get("last_rv", 0) >= final_rv
+                for s in snaps
+                for w in s["per_worker"]
+            ):
+                break
+            time.sleep(0.2)
+        duration = time.monotonic() - t0
+        fe_cpu = [
+            _proc_cpu_s(pid) - b0 for pid, b0 in zip(fe_pids, base_fe_cpu)
+        ]
+        w_cpu = [
+            w["cpu_s"] - base_w_cpu.get(w["pid"], 0.0)
+            for s in snaps
+            for w in s["per_worker"]
+        ]
+        # honest percentile drain: give the sampled real streams a
+        # moment to observe the tail of the storm
+        drain_deadline = time.monotonic() + 30.0
+        while time.monotonic() < drain_deadline:
+            if all(rem[0] <= 0 for rem in remainders):
+                break
+            time.sleep(0.1)
+        n_watchers_actual = actual_hollow + n_real_clients
+        deliveries = n_events * n_watchers_actual
+        measured = sum(s["delivered"] for s in snaps) - base_delivered
+        blat = sorted(bind_lat)
+        wl = sorted(wlat)
+        return RelayServingBenchResult(
+            n_frontends=n_frontends,
+            n_relay_workers=n_frontends * relay_workers,
+            n_watchers=n_watchers_actual,
+            n_real_clients=n_real_clients,
+            n_events=n_events,
+            n_binds=len(bind_lat),
+            tls=tls,
+            duration_s=duration,
+            bind_p50_ms=(blat[len(blat) // 2] * 1e3) if blat else 0.0,
+            bind_p99_ms=(
+                blat[min(int(0.99 * len(blat)), len(blat) - 1)] * 1e3
+                if blat
+                else 0.0
+            ),
+            watch_p50_ms=(wl[len(wl) // 2] * 1e3) if wl else 0.0,
+            watch_p99_ms=(
+                wl[min(int(0.99 * len(wl)), len(wl) - 1)] * 1e3
+                if wl
+                else 0.0
+            ),
+            fanout_deliveries=deliveries,
+            fanout_deliveries_per_s=(
+                deliveries / duration if duration else 0.0
+            ),
+            deliveries_measured=int(measured),
+            evicted_slow=int(
+                sum(s["evicted_slow"] for s in snaps) - base_evicted
+            ),
+            shed=int(sum(s["shed"] for s in snaps) - base_shed),
+            frontend_cpu_s=[round(c, 3) for c in fe_cpu],
+            worker_cpu_s=[round(c, 3) for c in w_cpu],
+        )
+    finally:
+        for w in real_watchers:
+            w.stop()
+        for c in real_clients:
+            try:
+                c.close()
+            except Exception:
+                pass
+        if client is not None:
+            client.close()
+        if lb is not None:
+            lb.stop()
+        if rlb is not None:
+            rlb.stop()
+        for p in procs:
+            try:
+                p.kill()
+                p.wait(timeout=10)
+            except Exception:
+                pass
+        for path in tmp_paths:
+            try:
+                os.unlink(path)
+            except OSError:
+                pass
+
+
+@dataclass
+class DurabilityBenchResult:
+    """The `durability` bench workload: raw WAL economics (ISSUE 18).
+
+    Group-committed append throughput with the fsync contract on and
+    off, the fsync latency distribution the stall watchdog monitors, and
+    cold recovery time for a large log — the numbers that size the
+    store's write path and its crash-restart MTTR."""
+
+    n_records: int
+    batch: int
+    append_fsync_per_s: float
+    append_nofsync_per_s: float
+    fsync_p50_ms: float
+    fsync_p99_ms: float
+    recovery_s: float
+    recovery_records_per_s: float
+    recovered_rv: int
+    native_sink: bool
+
+
+def run_durability_benchmark(
+    n_records: int = 50_000, batch: int = 64, fsync_records: int = 2_000
+) -> DurabilityBenchResult:
+    """Benchmark the WAL on a scratch directory: (1) `n_records` appends
+    in `batch`-record group commits with fsync OFF (page-cache ceiling),
+    (2) cold recovery of that log, (3) `fsync_records` appends with
+    fsync ON plus the wal_fsync_duration_seconds p50/p99 over exactly
+    this run's observations. Pods carry a realistic container spec so
+    record size matches the scheduler's write mix."""
+    import shutil
+    import tempfile
+
+    from ..api import objects as v1
+    from ..runtime.wal import HIST_FSYNC, WriteAheadLog
+
+    def pod(i: int) -> Pod:
+        p = Pod(
+            metadata=v1.ObjectMeta(name=f"bench-{i}"),
+            spec=v1.PodSpec(
+                containers=[v1.Container(requests={"cpu": "100m"})]
+            ),
+        )
+        p.metadata.resource_version = i + 1
+        return p
+
+    def append_run(wal: WriteAheadLog, count: int, rv0: int = 0) -> float:
+        t0 = time.monotonic()
+        for start in range(0, count, batch):
+            n = min(batch, count - start)
+            wal.append_batch([  # graftlint: walseam-exempt(scratch bench WAL: nothing is acked against it and a sink failure must crash the bench loudly)
+                (rv0 + start + k + 1, "create", "pods", pod(start + k))
+                for k in range(n)
+            ])
+        return count / max(time.monotonic() - t0, 1e-9)
+
+    tmp = tempfile.mkdtemp(prefix="ktpu-durability-")
+    try:
+        # arm 1: fsync off — the group-commit/encode ceiling
+        wal = WriteAheadLog(tmp + "/nofsync", compact_every=n_records * 2,
+                            fsync=False)
+        nofsync_rate = append_run(wal, n_records)
+        native = wal._native is not None
+        wal.close()
+
+        # arm 2: cold recovery of the 50k-record log (crash-restart MTTR)
+        t0 = time.monotonic()
+        rv, _objects = WriteAheadLog.recover(tmp + "/nofsync")
+        recovery_s = max(time.monotonic() - t0, 1e-9)
+
+        # arm 3: fsync on — the durability contract's real price, with
+        # the latency histogram scoped to exactly this run
+        h0 = metrics.histogram(HIST_FSYNC)
+        n0 = h0.count if h0 is not None else 0
+        wal = WriteAheadLog(tmp + "/fsync", compact_every=n_records * 2,
+                            fsync=True)
+        fsync_rate = append_run(wal, fsync_records)
+        wal.close()
+        h = metrics.histogram(HIST_FSYNC)
+        p50, p99 = (
+            h.quantiles_since(n0, [0.5, 0.99])
+            if h is not None
+            else (0.0, 0.0)
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    return DurabilityBenchResult(
+        n_records=n_records,
+        batch=batch,
+        append_fsync_per_s=round(fsync_rate, 1),
+        append_nofsync_per_s=round(nofsync_rate, 1),
+        fsync_p50_ms=round(p50 * 1e3, 3),
+        fsync_p99_ms=round(p99 * 1e3, 3),
+        recovery_s=round(recovery_s, 3),
+        recovery_records_per_s=round(rv / recovery_s, 1),
+        recovered_rv=rv,
+        native_sink=native,
+    )

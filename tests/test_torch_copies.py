@@ -9,11 +9,13 @@ docstrings included. A copy that differs in anything else fails. A line
 that starts a module of the package in a new process (``"-m",
 "kubernetes_tpu.relay.worker"``) is an import by name and is stripped too.
 
-Two kinds of copy:
+Three kinds of copy:
 * whole modules (``WHOLE``);
 * single definitions copied into a module the port otherwise rewrites
   (``DEFINITIONS``: functions, classes, methods or module constants, each
-  equal).
+  equal);
+* files that are not Python (``BYTE_EQUAL``: the native WAL sink's C++
+  source, the CRI protocol's .proto), byte for byte.
 """
 
 import ast
@@ -133,6 +135,56 @@ WHOLE = [
     "relay/worker.py",
     "controller/base.py",
     "controller/resourcequota.py",
+    # the control-plane slice (WAL, replication, backup, every controller,
+    # the rest of the kubelet, the other process entries, test rigs)
+    "runtime/wal.py",
+    "runtime/replication.py",
+    "runtime/backup.py",
+    "native/__init__.py",
+    "utils/cron.py",
+    "controller/attachdetach.py",
+    "controller/bootstrap.py",
+    "controller/certificates.py",
+    "controller/cloud.py",
+    "controller/cronjob.py",
+    "controller/daemonset.py",
+    "controller/deployment.py",
+    "controller/disruption.py",
+    "controller/endpoints.py",
+    "controller/endpointslice.py",
+    "controller/garbagecollector.py",
+    "controller/hpa.py",
+    "controller/job.py",
+    "controller/manager.py",
+    "controller/namespace.py",
+    "controller/nodeipam.py",
+    "controller/podgc.py",
+    "controller/pv_binder.py",
+    "controller/rbac.py",
+    "controller/serviceaccount.py",
+    "controller/statefulset.py",
+    "controller/ttl.py",
+    "controller/volume_expand.py",
+    "kubelet/cm.py",
+    "kubelet/csi.py",
+    "kubelet/devicemanager.py",
+    "kubelet/eviction.py",
+    "kubelet/processruntime.py",
+    "kubelet/volumemanager.py",
+    "kubelet/cri/__init__.py",
+    "kubelet/cri/wire.py",
+    "kubelet/cri/api_pb2.py",
+    "cmd/kubectl.py",
+    "cmd/backup.py",
+    "cmd/controller_manager.py",
+    "cmd/cloud_controller_manager.py",
+    "cmd/hollow_node.py",
+    "testing/netchaos.py",
+    "testing/tlsutil.py",
+    "testing/diskfaults.py",
+    "testing/fake_cache.py",
+    "testing/framework_helpers.py",
+    "testing/wrappers.py",
 ]
 
 # module -> definitions copied into the port's own module of that name
@@ -188,7 +240,72 @@ DEFINITIONS = {
         "PolicyTuner._rollback",
     ],
     "cmd/scheduler.py": ["_HealthHandler", "serve_health"],
+    # the control-plane slice. kubeadm's init_cluster and standby_cluster
+    # take `device` and hand it to the Scheduler, and main() gains
+    # --platform on init and standby (the reference's Scheduler picks
+    # its JAX backend itself; the port's needs a device).
+    "cmd/kubeadm.py": [
+        "logger",
+        "BOOTSTRAP_TOKEN_SECRET",
+        "ADMIN_CONF",
+        "ClusterHandle",
+        "assemble_security",
+        "standby_cluster.StandbyHandle",
+        "discover_cluster_info",
+        "_request_node_credential",
+        "join_node",
+        "upgrade_plan",
+        "upgrade_apply",
+    ],
+    # netchaos_procs's scheduler role takes --platform and hands the
+    # device to its replica (_Replica, run_scheduler, main): the
+    # reference's host-only replica needs no device, the port's Scheduler
+    # always resolves one.
+    "testing/netchaos_procs.py": [
+        "logger",
+        "_ledger_store",
+        "run_apiserver",
+        "_BenchStatsHandler",
+        "_hollow_watcher_pool",
+        "_serve_stats",
+        "_relay_fleet_stats",
+        "run_frontend",
+        "run_follower",
+        "_DebugHandler",
+    ],
+    # the harness's host-only benches: their spawn lines name the port's
+    # netchaos_procs, which the strip rule covers
+    "perf/harness.py": [
+        "ReadpathBenchResult",
+        "run_readpath_benchmark",
+        "_count_scheduled",
+        "_wait_all_scheduled",
+        "ServingBenchResult",
+        "run_serving_benchmark",
+        "RelayServingBenchResult",
+        "_proc_cpu_s",
+        "run_relay_serving_benchmark",
+        "DurabilityBenchResult",
+        "run_durability_benchmark",
+    ],
 }
+
+# files that are not Python, copied byte for byte
+BYTE_EQUAL = ["native/walsink.cpp", "kubelet/cri/api.proto"]
+
+# cmd/apiserver.py is a port whose only change is the dropped call to the
+# XLA compilation cache (utils/compilation_cache.py has no port): these
+# are the lines of the reference's main() that the port leaves out.
+_APISERVER_DROPPED = [
+    "    # the apiserver itself is host-only, but control-plane helpers it",
+    "    # hosts (e.g. an in-process scheduler replica in tests, tooling that",
+    "    # imports through this entry) share the process: point JAX at the",
+    "    # persistent compilation cache up front so any kernel they compile",
+    "    # lands in (or comes from) the shared cache. Safe post-generational",
+    "    # snapshot; KTPU_NO_COMPILATION_CACHE=1 opts out.",
+    "",
+    "    enable_persistent_compilation_cache()",
+]
 
 # `python -m <module of the package>` in an argument list
 _SPAWN = re.compile(r'"-m", "kubernetes_tpu(_torch)?\.')
@@ -274,6 +391,20 @@ def test_copied_definition_is_unchanged(rel, dotted):
     assert a == b, f"{rel}:{dotted}: {_first_difference(a, b)}"
 
 
+@pytest.mark.parametrize("rel", BYTE_EQUAL)
+def test_non_python_copy_is_byte_equal(rel):
+    assert (PORT / rel).read_bytes() == (REF / rel).read_bytes(), rel
+
+
+def test_apiserver_main_drops_only_the_compilation_cache_call():
+    ref, port = _Module(REF / "cmd/apiserver.py"), _Module(PORT / "cmd/apiserver.py")
+    a = ref.text(ref.find("main")).splitlines()
+    for line in _APISERVER_DROPPED:
+        a.remove(line)
+    b = port.text(port.find("main")).splitlines()
+    assert a == b, _first_difference("\n".join(a), "\n".join(b))
+
+
 def test_every_module_under_a_copied_directory_is_listed():
     """A module copied later must join a list here: every port module in
     the copied directories is WHOLE or a known port."""
@@ -287,11 +418,15 @@ def test_every_module_under_a_copied_directory_is_listed():
         "testing/__init__.py",
         "testing/device_faults.py",
         "autoscaler/planner.py",
+        "cmd/kubeadm.py",
+        "cmd/apiserver.py",
+        "testing/netchaos_procs.py",
     }
     listed = set(WHOLE) | ported
     for d in ("api", "client", "runtime", "utils", "controller", "scheduler",
               "tuner", "perf", "testing", "autoscaler", "descheduler",
-              "kubelet", "kubemark", "proxy", "apiserver", "relay", "cmd"):
+              "kubelet", "kubemark", "proxy", "apiserver", "relay", "cmd",
+              "native"):
         for p in sorted((PORT / d).rglob("*.py")):
             rel = str(p.relative_to(PORT))
             assert rel in listed, f"{rel} is neither a listed copy nor a port"

@@ -36,7 +36,27 @@ for new in ("parallel.sharded", "parallel.mesh", "ops.hostcallback",
             "apiserver.watchcodec", "apiserver.admission", "apiserver.auth",
             "apiserver.audit", "apiserver.webhook", "apiserver.crdschema",
             "apiserver.nodeauth", "relay", "relay.publisher", "relay.ring",
-            "relay.worker", "controller.base", "controller.resourcequota"):
+            "relay.worker", "controller.base", "controller.resourcequota",
+            # the control-plane slice's
+            "runtime.wal", "runtime.replication", "runtime.backup", "native",
+            "utils.cron", "controller.manager", "controller.attachdetach",
+            "controller.bootstrap", "controller.certificates",
+            "controller.cloud", "controller.cronjob", "controller.daemonset",
+            "controller.deployment", "controller.disruption",
+            "controller.endpoints", "controller.endpointslice",
+            "controller.garbagecollector", "controller.hpa", "controller.job",
+            "controller.namespace", "controller.nodeipam", "controller.podgc",
+            "controller.pv_binder", "controller.rbac",
+            "controller.serviceaccount", "controller.statefulset",
+            "controller.ttl", "controller.volume_expand", "kubelet.cm",
+            "kubelet.csi", "kubelet.devicemanager", "kubelet.eviction",
+            "kubelet.processruntime", "kubelet.volumemanager", "kubelet.cri",
+            "kubelet.cri.wire", "kubelet.cri.api_pb2", "cmd.kubeadm",
+            "cmd.kubectl", "cmd.apiserver", "cmd.backup",
+            "cmd.controller_manager", "cmd.cloud_controller_manager",
+            "cmd.hollow_node", "testing.netchaos", "testing.netchaos_procs",
+            "testing.tlsutil", "testing.diskfaults", "testing.fake_cache",
+            "testing.framework_helpers", "testing.wrappers"):
     assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
@@ -72,8 +92,86 @@ def test_port_imports_neither_jax_nor_the_reference_package():
     # registry, the auditor, the fault injector) and the capacity-planning
     # slice's (autoscaler, descheduler, kubelet, kubemark, proxy and the
     # controllers they need) and the policy-gym slice's (the gym, the
-    # process entry, the debugger, apiserver/, relay/)
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 128
+    # process entry, the debugger, apiserver/, relay/) and the
+    # control-plane slice's (WAL, replication, backup, every controller,
+    # the rest of the kubelet, the process entries, the test rigs)
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 179
+
+
+def _bound_names(tree) -> set:
+    """Every name a module binds at any depth: defs, classes, assignment
+    targets and imports (what ``from pkg import name`` may ask for)."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Name) and isinstance(node.ctx, ast.Store):
+            out.add(node.id)
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            out.update((a.asname or a.name).split(".")[0] for a in node.names)
+    return out
+
+
+def _module_file(parts):
+    """The port's file for a dotted module path (as parts), or None."""
+    base = ROOT.joinpath(*parts)
+    for f in (base.with_suffix(".py"), base / "__init__.py"):
+        if f.is_file():
+            return f
+    return None
+
+
+def dangling_imports(pkg_root: Path) -> list:
+    """Every import of the package, relative or by its absolute name, at
+    any depth of any module (lazy imports inside functions included),
+    that names a module the package does not have, or a name that the
+    module it reads from neither binds nor holds as a submodule."""
+    pkg = pkg_root.name
+    bad = []
+    for path in sorted(pkg_root.rglob("*.py")):
+        rel = path.relative_to(ROOT)
+        here = list(rel.parent.parts)  # the package this module is in
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            targets = []
+            if isinstance(node, ast.ImportFrom):
+                if node.level:
+                    base = here[: len(here) - (node.level - 1)]
+                    if node.level - 1 > len(here) - 1:
+                        bad.append(f"{rel}:{node.lineno}: beyond the package")
+                        continue
+                    mod = base + (node.module.split(".") if node.module else [])
+                elif node.module and node.module.split(".")[0] == pkg:
+                    mod = node.module.split(".")
+                else:
+                    continue
+                targets.append((mod, [a.name for a in node.names]))
+            elif isinstance(node, ast.Import):
+                for a in node.names:
+                    if a.name.split(".")[0] == pkg:
+                        targets.append((a.name.split("."), []))
+            for mod, names in targets:
+                f = _module_file(mod)
+                if f is None:
+                    bad.append(f"{rel}:{node.lineno}: no module {'.'.join(mod)}")
+                    continue
+                bound = None
+                for name in names:
+                    if name == "*" or _module_file(mod + [name]) is not None:
+                        continue
+                    if bound is None:
+                        bound = _bound_names(ast.parse(f.read_text()))
+                    if name not in bound:
+                        bad.append(
+                            f"{rel}:{node.lineno}: {'.'.join(mod)} has no {name}"
+                        )
+    return bad
+
+
+def test_every_import_of_the_port_resolves_to_a_module_of_the_port():
+    """Lazy imports run only on their path, so the walk above cannot see
+    them: this reads every import statement of the port instead."""
+    assert dangling_imports(ROOT / "kubernetes_tpu_torch") == []
 
 
 def test_chip_smoke_names_no_reference_module():
@@ -117,14 +215,28 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked():
         "def tuner(): return run_tuner_benchmark()\n"
         "def cmd_run(): return cmd_scheduler.run(APIServer(), healthz_port=0, block=False)\n"
         "def cmd_main(): return cmd_scheduler.main(['--healthz-port', '0'])\n"
+        "import tempfile\n"
+        "from kubernetes_tpu_torch.cmd import kubeadm\n"
+        "from kubernetes_tpu_torch.testing import netchaos_procs\n"
+        "tmp = tempfile.mkdtemp()\n"
+        "def kubeadm_init(): return kubeadm.init_cluster(tmp + '/i')\n"
+        "def kubeadm_standby(): return kubeadm.standby_cluster(('127.0.0.1', 1), tmp + '/s', insecure=True)\n"
+        "def kubeadm_main_init(): return kubeadm.main(['init', '--data-dir', tmp + '/m', '--port', '0'])\n"
+        "def kubeadm_main_standby(): return kubeadm.main(['standby', '127.0.0.1:1', '--data-dir', tmp + '/n'])\n"
+        "def procs_scheduler(): return netchaos_procs.run_scheduler('http://127.0.0.1:1', 'a', 0, 1.5, 1.0, 0.2, False)\n"
+        "def procs_main(): return netchaos_procs.main(['scheduler', '--server', 'http://127.0.0.1:1', '--identity', 'a'])\n"
         "for call in (resolve_device, SnapshotEncoder, scheduler, bench, latency,\n"
-        "             autoscaler, hetero, defrag, tuner, cmd_run, cmd_main):\n"
+        "             autoscaler, hetero, defrag, tuner, cmd_run, cmd_main,\n"
+        "             kubeadm_init, kubeadm_standby, kubeadm_main_init,\n"
+        "             kubeadm_main_standby, procs_scheduler, procs_main):\n"
         "    try:\n"
         "        call()\n"
         "    except RuntimeError as e:\n"
         "        assert 'device=\"cpu\"' in str(e), e\n"
         "    else:\n"
         "        raise AssertionError(f'{call.__name__}() ran without CUDA')\n"
+        "import os\n"
+        "assert os.listdir(tmp) == [], os.listdir(tmp)  # nothing started\n"
         "print('ok')\n"
     )
     proc = _run(code, CUDA_VISIBLE_DEVICES="")
