@@ -10,7 +10,9 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    version on the card: the main-path shape [TPL, 8192, 6] for TPL = 8
    and 64, ragged N (700, 5001), R = 1 and R = 12, zero-request columns
    and negative free; and the edge shapes of its tiling: N % 4 = 1, 2, 3
-   (8193-8195), N < 4, TPL off its 4-template tile, TPL > 256.
+   (8193-8195), N < 4, TPL off its 4-template tile, TPL > 256, and one
+   shard's rows of the main path over a mesh of 4 and of 8 ([4, 2048, 6],
+   [4, 1024, 6]).
    Tolerance: none, the masks must be bit-equal. At [8, 8192, 6] and
    [64, 8192, 6] (and at the main path's live shape after phase 2) it is
    timed: the launch floor (fit_mask_floor_launch, an empty kernel with
@@ -47,6 +49,22 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    noise: chosen, feasible_count and resolvable must be equal, the
    largest score difference is printed; the card's run on the batch's
    first 128 pods is profiled (device busy against wall).
+4c. [mesh]: node-axis sharding over 4 virtual entries of the card
+   (parallel/mesh.virtual_devices: one process driving an ordered device
+   list, as the reference's single controller drives its mesh), from the
+   main path's snapshot (n_cap 8192, 2,048 rows a shard): one 4096-pod
+   wave batch through the sharded wave kernel and the single-device one
+   with the same noise — every output and the committed snapshot must be
+   equal, K1 on each shard's rows equal to its plain version, K1 launched
+   once a shard; one 64-pod serial batch, sharded against single, equal;
+   SchedulingPodAffinity/5000 through run_benchmark with the Scheduler on
+   the 4 entries (the gate of phase 5: all bound once, affinity held, 0
+   trips, drift, rebuilds, no ERROR, K1 launched); then, on the fault
+   cluster, entries 2 and 3 failing the probe with launch 0 lost (the
+   mesh must shrink to [0, 1], every pod bound once on the device,
+   scheduler_mesh_devices 2) and only entry 1 answering (the encoder
+   pinned to entry 1). Copies between two cards are not exercised: the
+   card is one.
 5. The system's own entry point: perf/harness.run_benchmark of
    SchedulingPodAffinity/5000 through the port's APIServer, informers,
    queue and Scheduler (split-phase readback, assume and bind), after one
@@ -193,7 +211,7 @@ record the port logs; a fault phase fails on any ERROR it did not cause
 ([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 5, 6, 7, 8, 9, 11, 12-16c, 16d and 16e) and read just after. The last lines are the
+2, 4c, 5, 6, 7, 8, 9, 11, 12-16c, 16d and 16e) and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
@@ -205,7 +223,8 @@ on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
 ``launches_hardpair``), the gym's replays, the tuner bench and the
 process entry (``launches_gym``, ``launches_tuner``: the serial lattice,
 0; ``launches_cmd``), the kubeadm control plane and its promoted standby
-(``launches_kubeadm``, ``launches_failover``),
+(``launches_kubeadm``, ``launches_failover``), the burst on the 4-shard
+mesh (``launches_mesh``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -460,6 +479,8 @@ def phase_fit_kernel(device, parent):
         # N % 4 = 1, 2, 3; N < 4; TPL off K1's 4-template tile; TPL > 256
         (4, 8193, 6), (5, 8194, 6), (17, 8195, 6), (3, 1, 6), (2, 2, 16),
         (7, 3, 6), (300, 4099, 6), (257, 9, 5),
+        # one shard's rows of the main path over a mesh of 4 and of 8
+        (4, 2048, 6), (4, 1024, 6),
     ]
     for i, (tpl, n, r) in enumerate(cases):
         req, free = fit_case(i, tpl, n, r, device)
@@ -1267,14 +1288,18 @@ def ledger_server():
 FAULT_CLUSTER = ("SchedulingPodAffinity", 500, 100)
 
 
-def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds) -> dict:
-    """One Scheduler (the reference's defaults plus cfg_kw) on the fault
-    cluster with a DeviceFaultInjector(**inj_kw); the measured pods arrive
-    in `rounds` (each round waits until its pods are bound). Fails unless
-    every pod is bound exactly once, no node is oversubscribed, no pod
-    sits outside its required zone affinity and no assume leaks. Returns
-    the defense counters by label, the injections, the host-path pod
-    count, the ladder's probe answers and K1's launches."""
+def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds,
+              mesh_devices=None, alive=None) -> dict:
+    """One Scheduler (the reference's defaults plus cfg_kw, over
+    mesh_devices when given) on the fault cluster with a
+    DeviceFaultInjector(**inj_kw); the measured pods arrive in `rounds`
+    (each round waits until its pods are bound). With `alive`, the
+    ladder's probe of a mesh entry answers the card's real probe AND
+    whether the entry's id is in `alive`. Fails unless every pod is
+    bound exactly once, no node is oversubscribed, no pod sits outside
+    its required zone affinity and no assume leaks. Returns the defense
+    counters by label, the injections, the host-path pod count, the
+    ladder's probe answers, K1's launches and the mesh at the end."""
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.perf.harness import default_config
     from kubernetes_tpu_torch.perf.workloads import WorkloadConfig, build_workload
@@ -1293,7 +1318,7 @@ def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds) -> dict:
         p.spec.node_name = nodes[(7 * i) % len(nodes)].metadata.name
         server.create("pods", p)
     metrics.reset()
-    sched = Scheduler(server, default_config(**cfg_kw), device=device)
+    sched = Scheduler(server, default_config(**cfg_kw), device=device, mesh_devices=mesh_devices)
     inj = DeviceFaultInjector(**inj_kw).install(sched)
     host = []
     one_host = sched._schedule_one_host
@@ -1307,6 +1332,8 @@ def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds) -> dict:
 
     def probe(dev):
         ok = type(sched)._device_probe(dev)
+        if alive is not None:
+            ok = ok and dev is not None and dev.id in alive
         probes.append(ok)
         return ok
 
@@ -1360,6 +1387,11 @@ def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds) -> dict:
         "device_down": int(sched._device_down),
         "injected": sorted({k for k, _ in inj.injected}),
         "probes": probes, "k1": fit_kernels.fit_mask.launches,
+        "mesh": [d.id for d in sched._mesh.devices] if sched._mesh is not None else None,
+        "pinned": getattr(sched.cache.encoder.pinned_device, "id", None),
+        "shrinks": int(metrics.counter("scheduler_mesh_shrinks_total")),
+        "mesh_devices": metrics.gauge("scheduler_mesh_devices"),
+        "snapshot": type(sched.cache.encoder._device).__name__,
     }
 
 
@@ -1455,6 +1487,204 @@ def phase_device_loss(device, card: str, errors: ErrorLog) -> dict:
     n_err = errors.expect("device-loss", LOSS_ERRORS)
     log(f"[device-loss] {n_err} ERROR records, all caused by the injected losses")
     return {"blip": blip, "dead": dead, "serial": serial}
+
+
+MESH_SHARDS = 4
+MESH_ERRORS = ("mesh shrunk to", "wave launch failed with device loss")
+
+
+def phase_mesh(mp, device, card: str, errors: ErrorLog) -> dict:
+    """[mesh]: node-axis sharding over MESH_SHARDS virtual entries of the
+    card (parallel/mesh.virtual_devices), SchedulingPodAffinity/5000's
+    snapshot (n_cap 8192, 2,048 rows a shard):
+    (a) one 4096-pod wave batch of the main path through the sharded wave
+        kernel and the single-device WaveKernel, same snapshot (cloned)
+        and noise: chosen, placed, deferred, feasible_count, score,
+        resolvable_tpl, feasible_tpl and every committed snapshot field
+        equal; K1 on each shard's rows equals its plain version, and the
+        sharded batch launches K1 once a shard; walls and a profile of
+        each;
+    (b) one 64-pod serial batch, sharded against single, every output
+        equal;
+    (c) the burst through run_benchmark with mesh_devices = the 4
+        entries: 5000/5000 bound once, affinity held, 0 trips, drift,
+        rebuilds, device-down, no ERROR; pods/s, batches, K1 launches,
+        blocking readbacks;
+    (d) the shrink on the fault cluster: entries 2 and 3 fail the probe
+        and launch 0 is lost: the mesh shrinks to [0, 1], every pod bound
+        once, scheduler_mesh_devices 2; then only entry 1 answers: the
+        encoder pins the snapshot to entry 1."""
+    from kubernetes_tpu_torch.client.apiserver import APIServer
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.ops.batch import encode_pod_batch
+    from kubernetes_tpu_torch.ops.encoding import gather_snapshot
+    from kubernetes_tpu_torch.ops.lattice import make_schedule_batch
+    from kubernetes_tpu_torch.ops.wavelattice import make_wave_kernel
+    from kubernetes_tpu_torch.parallel import make_mesh, shard_snapshot
+    from kubernetes_tpu_torch.parallel.mesh import virtual_devices
+    from kubernetes_tpu_torch.parallel.sharded import (
+        make_sharded_schedule_batch,
+        make_sharded_wave_kernel,
+    )
+    from kubernetes_tpu_torch.perf.harness import run_benchmark
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+    from kubernetes_tpu_torch.scheduler.wavepath import prepare_batch
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    t_phase = time.perf_counter()
+    entries = virtual_devices(device, MESH_SHARDS)
+    mesh = make_mesh(entries)
+    enc, cfg = mp["enc"], mp["cfg"]
+    pods = [mp["factory"](300000 + i) for i in range(cfg.batch_size)]
+    prep = prepare_batch(enc, mp["cache"], pods, cfg)
+    snap = enc.flush()
+    k = prep.kern
+    variant = (k.v_cap, k.m_cand, k.n_waves, k.hard_pod_affinity_weight, True,
+               k.score_refresh, k.rtc_shape, k.has_pinned)
+    single = make_wave_kernel(*variant)
+    sharded = make_sharded_wave_kernel(*variant[:4], mesh, *variant[4:])
+    n = snap.valid.shape[0]
+    m_c = min(k.m_cand, n)
+    noise = torch.rand((cfg.batch_size, m_c), generator=mp["rng"], device=device) * 0.999
+
+    def clone(nt):
+        return type(nt)(*(t.clone() for t in nt))
+
+    base = shard_snapshot(snap, mesh)
+    # K1 on each shard's rows against its plain version (comparison launches)
+    for i, blk in enumerate(base.blocks):
+        free = (blk.allocatable - blk.requested).contiguous()
+        req = prep.eb.batch.tpl.req.contiguous()
+        if not torch.equal(fit_kernels.fit_mask(req, free), fit_kernels.fit_mask_plain(req, free)):
+            raise AssertionError(f"[mesh] K1 on shard {i} differs from its plain version")
+    rows = base.rows
+    run1 = lambda: single.with_noise(clone(snap), prep.eb.batch, prep.ptab, mp["weights"], noise)  # noqa: E731
+    run4 = lambda: sharded.with_noise(  # noqa: E731
+        shard_snapshot(snap, mesh), prep.eb.batch, prep.ptab, mp["weights"], noise)
+    s1, r1 = run1()
+    zero_k(fit_kernels)
+    s4, r4 = run4()
+    torch.cuda.synchronize()
+    k1_batch = fit_kernels.fit_mask.launches
+    for f in ("chosen", "placed", "deferred", "feasible_count", "score"):
+        if not torch.equal(getattr(r1, f), getattr(r4, f)):
+            raise AssertionError(f"[mesh] sharded wave batch: {f} differs from one device")
+    for f in ("resolvable_tpl", "feasible_tpl"):
+        if not torch.equal(getattr(r1, f).cpu(), getattr(r4, f).cpu()):
+            raise AssertionError(f"[mesh] sharded wave batch: {f} differs from one device")
+    g = gather_snapshot(s4)
+    for f in s1._fields:
+        if not torch.equal(getattr(s1, f), getattr(g, f)):
+            raise AssertionError(f"[mesh] sharded wave batch: committed {f} differs")
+    if k1_batch != MESH_SHARDS:
+        raise AssertionError(f"[mesh] K1 launched {k1_batch} times for {MESH_SHARDS} shards")
+
+    def wall(fn, reps=3):
+        ts = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t0) * 1e3)
+        return sorted(ts)[len(ts) // 2]
+
+    w1, w4 = wall(run1), wall(run4)
+    log(f"[mesh] one {cfg.batch_size}-pod wave batch, {prep.n_waves} waves, on "
+        f"{MESH_SHARDS} virtual shards of {rows} rows (n_cap {n}) equals one device: "
+        f"chosen, placed, deferred, feasible_count, score, resolvable_tpl, "
+        f"feasible_tpl and the committed snapshot ({int(r4.placed.sum())} placed); "
+        f"K1 {k1_batch} launches (one a shard), each shard's mask equal to its plain "
+        f"version; wall p50 of 3: single {w1:.2f} ms, sharded {w4:.2f} ms; card {card}")
+    prof1 = prof4 = {}
+    try:
+        prof1 = profile_device(f"[mesh] single-device wave batch ({cfg.batch_size} pods)", run1)
+        prof4 = profile_device(f"[mesh] sharded wave batch ({MESH_SHARDS} shards)", run4)
+    except (RuntimeError, AttributeError) as e:  # measurement only
+        log(f"[profile] mesh wave batch device time not measured: {e}")
+
+    # (b) the serial kernel
+    spods = [mp["factory"](400000 + i) for i in range(64)]
+    eb = encode_pod_batch(enc, spods, pad_to=64)
+    snap = enc.flush()
+    snoise = torch.rand((64, n), generator=mp["rng"], device=device)
+    ks1 = make_schedule_batch(enc.cfg.v_cap)
+    ks4 = make_sharded_schedule_batch(enc.cfg.v_cap, mesh)
+    sbase = shard_snapshot(snap, mesh)
+    ks1(snap, eb.batch, mp["weights"], snoise)  # allocator warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a = ks1(snap, eb.batch, mp["weights"], snoise)
+    torch.cuda.synchronize()
+    sw1 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = ks4(sbase, eb.batch, mp["weights"], snoise)
+    torch.cuda.synchronize()
+    sw4 = time.perf_counter() - t0
+    for f in ("chosen", "score", "feasible_count"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            raise AssertionError(f"[mesh] sharded serial batch: {f} differs from one device")
+    if not torch.equal(a.resolvable.cpu(), b.resolvable.cpu()):
+        raise AssertionError("[mesh] sharded serial batch: resolvable differs from one device")
+    log(f"[mesh] one 64-pod serial batch on {MESH_SHARDS} shards equals one device "
+        f"(chosen, score, feasible_count, resolvable; {int((a.chosen >= 0).sum())} placed): "
+        f"single {sw1:.3f} s = {sw1 / 64 * 1e3:.2f} ms a pod step, sharded {sw4:.3f} s = "
+        f"{sw4 / 64 * 1e3:.2f} ms a pod step; card {card}")
+    del s1, s4, g, base, sbase
+
+    # (c) the Scheduler's burst on the mesh
+    errors.check("before mesh")
+    wl = WORKLOADS["SchedulingPodAffinity/5000"]
+    server = APIServer()
+    zero_k(fit_kernels)
+    res = run_benchmark(wl, device=device, server=server, timeout_s=300,
+                        mesh_devices=virtual_devices(device, MESH_SHARDS))
+    k1_burst, k2_burst = count_k(fit_kernels)
+    blocking = metrics.counter("scheduler_wave_readbacks_blocking_total")
+    log(f"[mesh] SchedulingPodAffinity/5000 through APIServer + Scheduler on "
+        f"{MESH_SHARDS} virtual shards: {res.scheduled}/{res.num_measured_pods} bound "
+        f"in {res.duration_s:.3f} s = {res.throughput_pods_per_s:.1f} pods/s; e2e p99 "
+        f"{res.e2e_p99_ms:.1f} ms; {res.n_batches} batches, {res.n_readbacks} blocking "
+        f"readbacks ({blocking:.0f} blocking syncs in all); K1 launches {k1_burst}, "
+        f"K2 launches {k2_burst}; guard trips {res.guard_trips}; card {card}")
+    errors.check("mesh")
+    defense_report("mesh", card, res=res)
+    if res.scheduled != res.num_measured_pods or res.unscheduled or res.guard_trips:
+        raise AssertionError("[mesh] the burst on the mesh left pods unbound or tripped")
+    if k1_burst <= 0:
+        raise AssertionError("[mesh] the Scheduler on the mesh never launched K1")
+    check_bindings(server, wl.num_measured_pods, "mesh")
+    del server
+
+    # (d) the shrink rungs of the device-loss ladder
+    t0 = time.perf_counter()
+    two = run_fault(device, "mesh", dict(fail_launches={0}), dict(device_retry_attempts=0),
+                    [120], mesh_devices=entries, alive={0, 1})
+    fault_line("mesh", f"entries 2, 3 dead, launch 0 lost ({MESH_SHARDS} shards)", two, card)
+    if two["mesh"] != [0, 1] or two["shrinks"] != 1 or two["mesh_devices"] != 2.0:
+        raise AssertionError(f"[mesh] no shrink to 2: mesh {two['mesh']}, shrinks "
+                             f"{two['shrinks']}, gauge {two['mesh_devices']}")
+    if two["device_down"] or two["host"] or two["snapshot"] != "ShardedSnapshot":
+        raise AssertionError("[mesh] the shrunk mesh did not bind on the device")
+    one = run_fault(device, "mesh", dict(fail_launches={0}), dict(device_retry_attempts=0),
+                    [120], mesh_devices=entries, alive={1})
+    fault_line("mesh", "only entry 1 answers, launch 0 lost", one, card)
+    if one["mesh"] is not None or one["pinned"] != 1 or one["mesh_devices"] != 1.0:
+        raise AssertionError(f"[mesh] no pin to the survivor: mesh {one['mesh']}, "
+                             f"pinned {one['pinned']}")
+    if one["device_down"] or one["host"] or one["snapshot"] != "DeviceSnapshot":
+        raise AssertionError("[mesh] the survivor did not bind on the device")
+    shrink_s = time.perf_counter() - t0
+    n_err = errors.expect("mesh", MESH_ERRORS)
+    log(f"[mesh] shrinks: 4 -> 2 ({two['pods']} pods in {two['wall_s']:.2f} s) and 4 -> "
+        f"entry 1 pinned ({one['pods']} pods in {one['wall_s']:.2f} s), {shrink_s:.1f} s "
+        f"together; {n_err} ERROR records, all from the injected losses and the "
+        f"shrinks; [mesh] {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return {
+        "k1": k1_burst, "k2": k2_burst, "pods_per_s": res.throughput_pods_per_s,
+        "wall_single_ms": w1, "wall_sharded_ms": w4, "k1_batch": k1_batch,
+        "launches_single": prof1.get("launches"), "launches_sharded": prof4.get("launches"),
+    }
 
 
 def phase_hostcb(device, card: str, errors: ErrorLog) -> dict:
@@ -3043,6 +3273,7 @@ def main(argv=None) -> int:
 
     phase_parity(mp, device)
     serial_batch_check(mp, device)
+    mesh = phase_mesh(mp, device, card, errors)
 
     res, k1_launches, k2_launches, sched_server = phase_scheduler(device, card, errors)
     phase_audit(sched_server, device, card, errors)
@@ -3099,6 +3330,7 @@ def main(argv=None) -> int:
             "launches_cmd": cmd[k],
             "launches_kubeadm": kubeadm[k],
             "launches_failover": failover[k],
+            "launches_mesh": mesh[k],
         }
 
     kernels = {

@@ -24,9 +24,22 @@ default stream after the writes that produced the pinned generation),
 ``has_pending_updates``. The autoscaler's and descheduler's what-if
 overlay is ``whatif_overlay`` (with ``free_row_indices``, copied): fresh
 clones of the pinned generation with the virtual and masked rows written
-in. Not ported yet: ``set_sharding`` (ROADMAP queue 1 item 6);
-``warm_scatter_programs`` (an XLA-compile warmer) has no counterpart in
-eager torch.
+in. ``warm_scatter_programs`` (an XLA-compile warmer) has no
+counterpart in eager torch.
+
+Multi-device placement is ``set_sharding`` (the reference's, taking the
+placement descriptions of ``parallel/mesh.py``). Over a mesh, ``flush``
+returns a :class:`ShardedSnapshot`: every row-major field split into
+contiguous row blocks, one per mesh entry, each block a tensor of its own
+on its entry's device, the replicated fields copied to every entry. The
+dirty-row scatter routes each row to its owning block with local row ids,
+a copy-on-pin clones every block, and a retired generation drops every
+block. Readers that need whole rows in one place (the auditor's
+``fetch_device_rows``, ``whatif_overlay``, the Scheduler's victim
+selection and preemption what-if) read a sharded generation through
+:func:`gather_snapshot`, which assembles the rows they ask for on the
+mesh's first device. A mesh of one survivor (``single_device_shardings``)
+pins every upload and every scatter to that survivor's device.
 ``add_pods_bulk`` (the cache's bulk assume), the row-aggregate repair the
 cache's unwind path calls, ``utilization_stats`` and the PDB budget
 column refresh (``update_pdb_blocked``, read by
@@ -636,8 +649,16 @@ class SnapshotEncoder:
     ):
         self.cfg = config or EncodingConfig()
         # every tensor this encoder emits (snapshot, pod and template
-        # batches, pair tables) lives here; None means the CUDA card
+        # batches, pair tables) lives here; None means the CUDA card.
+        # set_sharding moves it to the mesh's first device (or the pinned
+        # survivor's)
         self.device = resolve_device(device)
+        self._home_device = self.device
+        # multi-device placement (set_sharding): the mesh the snapshot's
+        # rows are split over, or None for one device; the mesh entry every
+        # upload is pinned to (single_device_shardings), or None
+        self._mesh = None
+        self.pinned_device = None
         self.key_vocab = Vocab()
         self.val_vocab = Vocab()
         self.res_vocab = Vocab()  # extended resource name -> idx-N_BASE_RES
@@ -1530,7 +1551,7 @@ class SnapshotEncoder:
         masters = self._masters()
         if self._gen is None or self._content_invalid:  # graftlint: unguarded(gen rebinds only happen on flush paths, serialized by the cache lock this runs under)
             self._flush_what = "full upload (first use or content invalid)"
-            snap = _upload(masters, self.device)
+            snap = self._upload(masters)
             self._full_upload = False
             self._content_invalid = False
             self._globals_dirty = False
@@ -1547,17 +1568,19 @@ class SnapshotEncoder:
             # shared_with_base: donation treats the pair as one pin scope
             # until the predecessor retires.
             with self.donation_lease(donating=False) as dl:
-                merged = {}
                 reshaped = []
-                for name in DeviceSnapshot._fields:
-                    m = getattr(masters, name)
-                    d = getattr(dl.snap, name)
-                    if tuple(d.shape) != m.shape:
-                        reshaped.append(name)
-                        merged[name] = torch.tensor(m, device=self.device)
-                    else:
-                        merged[name] = d
-                dl.result = DeviceSnapshot(**merged)
+                if isinstance(dl.snap, ShardedSnapshot):
+                    # a block is re-uploaded where its shape no longer
+                    # matches its slice of the masters (an n_cap growth
+                    # changes every row-major block)
+                    base = dl.snap
+                    blocks = [
+                        self._reshape_merge(blk, masters, reshaped, s, base.n_blocks)
+                        for s, blk in enumerate(base.blocks)
+                    ]
+                    dl.result = ShardedSnapshot(base.mesh, blocks)
+                else:
+                    dl.result = self._reshape_merge(dl.snap, masters, reshaped)
                 dl.shared = True  # kept fields are the base's own tensors
             self._full_upload = False
             self._flush_what = f"reshape upload of {reshaped}"
@@ -1589,21 +1612,96 @@ class SnapshotEncoder:
         lease-private tensors are updated in place (``index_copy_``); with
         donate=False every field is cloned first and `snap` is untouched."""
         idx_np = np.asarray(rows, np.int64)
-        idx = torch.as_tensor(idx_np).to(self.device)
-        out = {}
+        if not isinstance(snap, ShardedSnapshot):
+            return _scatter_block(snap, masters, idx_np, idx_np, self.device, donate)
+        # sharded: each dirty row goes to the block that owns it, at its
+        # local row id; every block takes the global fields wholesale
+        b = snap.rows
+        owner = idx_np // b
+        return ShardedSnapshot(
+            snap.mesh,
+            [
+                _scatter_block(
+                    blk, masters, idx_np[owner == s], idx_np[owner == s] - s * b,
+                    entry.device, donate,
+                )
+                for s, (entry, blk) in enumerate(zip(snap.mesh.devices, snap.blocks))
+            ],
+        )
+
+    def _upload(self, masters: DeviceSnapshot):
+        """A full upload under the current placement: one device, or one
+        row block per mesh entry."""
+        if self._mesh is not None:
+            return _upload_sharded(masters, self._mesh)
+        return _upload(masters, self.device)
+
+    def _reshape_merge(self, snap, masters, reshaped, s: int = 0, n_blocks: int = 1):
+        """The capacity-growth merge of one device block (the whole
+        snapshot on one device): fields whose shape no longer matches the
+        masters' (their slice, for block `s` of `n_blocks`) are uploaded
+        anew, the rest kept."""
+        merged = {}
         for name in DeviceSnapshot._fields:
-            m = getattr(masters, name)
-            if name in _GLOBAL_FIELDS:
-                out[name] = torch.tensor(m, device=self.device)
-                continue
-            dst = getattr(snap, name)
-            if not donate:
-                dst = dst.clone()
-            if len(rows):
-                src = torch.tensor(m[idx_np], device=self.device)
-                dst.index_copy_(0, idx, src)
-            out[name] = dst
-        return DeviceSnapshot(**out)
+            m = _block_of(getattr(masters, name), name, s, n_blocks)
+            d = getattr(snap, name)
+            if tuple(d.shape) != m.shape:
+                if name not in reshaped:
+                    reshaped.append(name)
+                merged[name] = torch.tensor(m, device=d.device if n_blocks > 1 else self.device)
+            else:
+                merged[name] = d
+        return DeviceSnapshot(**merged)
+
+    def set_sharding(self, snap_shardings, replicated_sharding=None) -> None:
+        """Adopt multi-device placement (``parallel/mesh.snapshot_shardings``
+        with ``replicated``, or ``single_device_shardings``): row-major
+        fields split into one row block per mesh entry, the replicated
+        fields and every tensor the encoder emits (pod and template
+        batches, pair tables) on the mesh's first device; or everything
+        pinned to one entry. ``(None, None)`` returns to the encoder's own
+        device. Forces a fresh upload, as in the reference. The row count
+        (``n_cap``, a power of two) must divide over the mesh."""
+        mesh = pin = None
+        if snap_shardings is None:
+            device = self._home_device
+        else:
+            first = snap_shardings.valid
+            if hasattr(first, "mesh"):
+                mesh = first.mesh
+                for f in DeviceSnapshot._fields:
+                    want = "Replicated" if f in _GLOBAL_FIELDS else "NodeSharding"
+                    got = getattr(snap_shardings, f)
+                    if type(got).__name__ != want or got.mesh != mesh:
+                        raise ValueError(
+                            f"set_sharding: field {f} must be {want} over "
+                            f"the snapshot's mesh, got {got!r}"
+                        )
+                if self.cfg.n_cap % mesh.size:
+                    raise ValueError(
+                        f"n_cap {self.cfg.n_cap} does not divide over a "
+                        f"mesh of {mesh.size}"
+                    )
+                device = mesh.first
+                if mesh.size == 1:
+                    mesh, pin = None, mesh.devices[0]
+            else:
+                if len({getattr(snap_shardings, f) for f in DeviceSnapshot._fields}) != 1:
+                    raise ValueError(
+                        "set_sharding: a single-device placement pins every "
+                        "field to the same device"
+                    )
+                pin = first.device
+                device = pin.device
+        self._mesh = mesh
+        self.pinned_device = pin
+        self.device = torch.device(device)
+        self.invalidate_device()
+
+    @property
+    def mesh(self):
+        """The mesh the snapshot is split over (set_sharding), or None."""
+        return self._mesh
 
     @property
     def has_pending_updates(self) -> bool:
@@ -1689,18 +1787,17 @@ class SnapshotEncoder:
             snap = lease.snap
             if snap is None:
                 return None
-            dev = snap.valid.device
+            dev = snap.first if isinstance(snap, ShardedSnapshot) else snap.valid.device
             stream = (
                 torch.cuda.stream(torch.cuda.default_stream(dev))
                 if dev.type == "cuda"
                 else contextlib.nullcontext()
             )
             with stream:
-                idx = torch.as_tensor(np.asarray(rows, np.int64)).to(dev)
-                parts = [
-                    getattr(snap, name).index_select(0, idx)
-                    for name in self.ROW_FIELDS
-                ]
+                # on a sharded generation, the owning blocks' rows
+                # assembled on the first device
+                got = gather_snapshot(snap, rows)
+                parts = [getattr(got, name) for name in self.ROW_FIELDS]
                 host = torch.cat(
                     [t.reshape(-1).view(torch.uint8) for t in parts]
                 ).cpu().numpy()
@@ -1884,9 +1981,10 @@ class SnapshotEncoder:
         on the default stream like ``fetch_device_rows``, i.e. after the
         writes that produced the pinned generation; the reference's
         padded ``_SCATTER_PAD_*`` chunks existed for XLA's program cache
-        and are not needed in eager torch. The reference's replicated
-        overlay for a sharded snapshot waits for ``set_sharding``
-        (ROADMAP queue 1 item 6).
+        and are not needed in eager torch. On a sharded generation the
+        base is :func:`gather_snapshot` of it (every row, assembled on the
+        mesh's first device: fresh tensors), and the overlay lives there,
+        as the reference's replicated overlay does.
 
         Caller must hold the cache lock (vocab interning + the masters
         read must be consistent with row_names)."""
@@ -1910,7 +2008,9 @@ class SnapshotEncoder:
         with self.pin_generation() as lease, stream:
             if lease.snap is not None and not self.has_pending_updates:
                 base = lease.snap
-                fresh = False
+                fresh = isinstance(base, ShardedSnapshot)
+                if fresh:
+                    base = gather_snapshot(base)
             else:
                 base = _upload(masters, dev)
                 fresh = True
@@ -1984,11 +2084,173 @@ def _upload(masters: DeviceSnapshot, device: torch.device) -> DeviceSnapshot:
     )
 
 
-def _copy_snapshot(snap: DeviceSnapshot) -> DeviceSnapshot:
+def _copy_snapshot(snap):
     """Copy-on-pin: when a reader pins generation N, a donating writer
     updates this fresh copy instead of the pinned tensors
-    (DonationLease)."""
+    (DonationLease). A sharded generation clones every block."""
+    if isinstance(snap, ShardedSnapshot):
+        return ShardedSnapshot(snap.mesh, [_copy_snapshot(b) for b in snap.blocks])
     return DeviceSnapshot(*(t.clone() for t in snap))
+
+
+def _block_of(m: np.ndarray, name: str, s: int, n_blocks: int) -> np.ndarray:
+    """Block `s` of `n_blocks` of one master: its contiguous row slice,
+    or the whole array for a replicated (global) field."""
+    if n_blocks == 1 or name in _GLOBAL_FIELDS:
+        return m
+    b = m.shape[0] // n_blocks
+    return m[s * b:(s + 1) * b]
+
+
+def _scatter_block(
+    blk: DeviceSnapshot, masters: DeviceSnapshot, rows: np.ndarray,
+    local: np.ndarray, device: torch.device, donate: bool,
+) -> DeviceSnapshot:
+    """The dirty-row scatter into one device block: the masters' global
+    `rows` written at the block's `local` row ids (in place with donate,
+    else into clones); the global fields replaced wholesale."""
+    idx = torch.as_tensor(local).to(device)
+    out = {}
+    for name in DeviceSnapshot._fields:
+        m = getattr(masters, name)
+        if name in _GLOBAL_FIELDS:
+            out[name] = torch.tensor(m, device=device)
+            continue
+        dst = getattr(blk, name)
+        if not donate:
+            dst = dst.clone()
+        if len(rows):
+            src = torch.tensor(m[rows], device=device)
+            dst.index_copy_(0, idx, src)
+        out[name] = dst
+    return DeviceSnapshot(**out)
+
+
+class ShardedSnapshot:
+    """The device snapshot split over a mesh's entries along the node axis
+    (what ``SnapshotEncoder.flush`` returns once ``set_sharding`` adopted a
+    mesh; the reference's DeviceSnapshot of ``NamedSharding`` arrays).
+    ``blocks[s]`` is a DeviceSnapshot on ``mesh.devices[s].device`` with
+    rows ``[s * rows, (s + 1) * rows)`` of every row-major field and a full
+    copy of every replicated one. Every block's tensors are allocations of
+    their own, never views into one ``[N, ...]`` tensor (K1 takes only
+    inputs that start on 16 bytes). The node-sharded kernels
+    (``parallel/sharded.py``) update the blocks in place."""
+
+    __slots__ = ("mesh", "blocks")
+
+    def __init__(self, mesh, blocks):
+        self.mesh = mesh
+        self.blocks = tuple(blocks)
+        if len(self.blocks) != mesh.size:
+            raise ValueError(f"{len(self.blocks)} blocks for a mesh of {mesh.size}")
+
+    @property
+    def n_blocks(self) -> int:
+        return len(self.blocks)
+
+    @property
+    def rows(self) -> int:
+        """Rows per block."""
+        return int(self.blocks[0].valid.shape[0])
+
+    @property
+    def n(self) -> int:
+        """Rows in all (the single-device snapshot's N)."""
+        return self.rows * len(self.blocks)
+
+    @property
+    def first(self) -> torch.device:
+        return self.mesh.devices[0].device
+
+    def with_field(self, name: str, full: np.ndarray) -> "ShardedSnapshot":
+        """A new ShardedSnapshot whose field `name` holds `full` (all N
+        rows, split into fresh blocks); every other tensor is shared."""
+        blocks = []
+        for s, (entry, blk) in enumerate(zip(self.mesh.devices, self.blocks)):
+            part = _block_of(full, name, s, len(self.blocks))
+            blocks.append(blk._replace(**{name: torch.tensor(part, device=entry.device)}))
+        return ShardedSnapshot(self.mesh, blocks)
+
+
+def num_rows(snap) -> int:
+    """N, the snapshot's row count, of a single-device or a sharded one."""
+    if isinstance(snap, ShardedSnapshot):
+        return snap.n
+    return int(snap.valid.shape[0])
+
+
+def gather_snapshot(snap, rows=None) -> DeviceSnapshot:
+    """THE reader helper of a sharded snapshot: a single-device
+    DeviceSnapshot on the mesh's first device holding `rows` (global row
+    ids, any order; None = every row) of every row-major field, taken
+    from the blocks that own them, and the replicated fields of the first
+    block. Every tensor is freshly allocated. The readers that do not run
+    node-sharded yet (the victim selection, the preemption what-if, the
+    auditor's fetch, the what-if overlay) take their snapshot through
+    it; on a single-device snapshot it returns the snapshot itself (rows
+    None) or an ``index_select`` of its rows."""
+    if not isinstance(snap, ShardedSnapshot):
+        if rows is None:
+            return snap
+        idx = torch.as_tensor(np.asarray(rows, np.int64)).to(snap.valid.device)
+        return DeviceSnapshot(
+            *(
+                t if name in _GLOBAL_FIELDS else t.index_select(0, idx)
+                for name, t in zip(DeviceSnapshot._fields, snap)
+            )
+        )
+    dev = snap.first
+    out = {}
+    if rows is None:
+        for name in DeviceSnapshot._fields:
+            if name in _GLOBAL_FIELDS:
+                out[name] = getattr(snap.blocks[0], name).clone()
+            else:
+                out[name] = torch.cat([getattr(b, name).to(dev) for b in snap.blocks])
+        return DeviceSnapshot(**out)
+    rows_np = np.asarray(rows, np.int64)
+    b = snap.rows
+    owner = rows_np // b
+    picks = []
+    for s, entry in enumerate(snap.mesh.devices):
+        pos = np.flatnonzero(owner == s)
+        if pos.size:
+            picks.append((
+                s,
+                torch.as_tensor(pos).to(dev),
+                torch.as_tensor(rows_np[pos] - s * b).to(entry.device),
+            ))
+    for name in DeviceSnapshot._fields:
+        if name in _GLOBAL_FIELDS:
+            out[name] = getattr(snap.blocks[0], name).clone()
+            continue
+        ref = getattr(snap.blocks[0], name)
+        dst = torch.empty((len(rows_np),) + tuple(ref.shape[1:]), dtype=ref.dtype, device=dev)
+        for s, pos, local in picks:
+            dst.index_copy_(0, pos, getattr(snap.blocks[s], name).index_select(0, local).to(dev))
+        out[name] = dst
+    return DeviceSnapshot(**out)
+
+
+def _upload_sharded(masters: DeviceSnapshot, mesh) -> ShardedSnapshot:
+    """Fresh row blocks of every master, one per mesh entry, each a
+    tensor of its own on its entry's device."""
+    n = masters.valid.shape[0]
+    if n % mesh.size:
+        raise ValueError(f"{n} snapshot rows do not divide over a mesh of {mesh.size}")
+    return ShardedSnapshot(
+        mesh,
+        [
+            DeviceSnapshot(
+                *(
+                    torch.tensor(_block_of(m, name, s, mesh.size), device=entry.device)
+                    for name, m in zip(DeviceSnapshot._fields, masters)
+                )
+            )
+            for s, entry in enumerate(mesh.devices)
+        ],
+    )
 
 # lockset sanitizer (testing/lockgraph.py Eraser mode): the encoder's
 # host bookkeeping is guarded by the CALLER's `scheduler.cache` lock

@@ -264,19 +264,20 @@ def _expr_mask(snap: DeviceSnapshot, key, op, vals, num) -> torch.Tensor:
 
 
 def _term_mask(
-    snap, keys, ops, vals, nums, name_row: Optional[torch.Tensor]
+    snap, keys, ops, vals, nums, name_row: Optional[torch.Tensor], base: int = 0
 ) -> torch.Tensor:
     """``[*S, N]`` bool for NodeSelectorTerms: AND of expressions (keys
-    ``[*S, E]``) + the matchFields metadata.name row (None = no field)."""
+    ``[*S, E]``) + the matchFields metadata.name row (None = no field).
+    `base` is the global row of the snapshot's first row (a shard's)."""
     m = _expr_mask(snap, keys, ops, vals, nums).all(dim=-2)
     if name_row is None:
         return m
-    rows = torch.arange(snap.valid.shape[0], device=m.device)
+    rows = torch.arange(base, base + snap.valid.shape[0], device=m.device)
     nr = name_row[..., None]
     return m & torch.where(nr == -1, True, rows == nr)
 
 
-def _node_affinity_required(snap, bp: PodBatch) -> torch.Tensor:
+def _node_affinity_required(snap, bp: PodBatch, base: int = 0) -> torch.Tensor:
     """[B, N] bool: nodeSelector AND (OR of required nodeSelectorTerms).
 
     Mirrors PodMatchesNodeSelectorAndAffinityTerms
@@ -284,7 +285,7 @@ def _node_affinity_required(snap, bp: PodBatch) -> torch.Tensor:
     ns_ok = _term_mask(snap, bp.ns_key, bp.ns_op, bp.ns_vals, bp.ns_num, None)
     terms = _term_mask(
         snap, bp.aff_key, bp.aff_op, bp.aff_vals, bp.aff_num,
-        bp.aff_match_name_row,
+        bp.aff_match_name_row, base,
     )  # [B, T, N]
     any_term = (terms & bp.aff_term_valid[..., None]).any(dim=1)
     aff_ok = torch.where(bp.aff_has[:, None], any_term, True)
@@ -325,11 +326,22 @@ def _taints(snap, bp: PodBatch) -> Tuple[torch.Tensor, torch.Tensor]:
     return ok, intolerable
 
 
-def _image_locality(snap, bp: PodBatch) -> torch.Tensor:
-    """[B, N] float 0..100 (imagelocality/image_locality.go:47)."""
-    n_valid = snap.valid.float().sum().clamp(min=1.0)
-    have = (snap.image_bytes > 0).float()  # [N, I]
-    spread = have.sum(dim=0) / n_valid  # [I] fraction of nodes w/ image
+def _image_counts(snap) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(live nodes, live-or-not nodes holding each image [I]): the counts
+    the image spread divides, partial on a shard (they add up)."""
+    return snap.valid.float().sum(), (snap.image_bytes > 0).float().sum(dim=0)
+
+
+def _image_locality(snap, bp: PodBatch, counts=None) -> torch.Tensor:
+    """[B, N] float 0..100 (imagelocality/image_locality.go:47). `counts`:
+    the :func:`_image_counts` of every node when `snap` is one shard's
+    rows (None: this snapshot's own)."""
+    if counts is None:
+        n_valid = snap.valid.float().sum().clamp(min=1.0)
+        have = (snap.image_bytes > 0).float()  # [N, I]
+        spread = have.sum(dim=0) / n_valid  # [I] fraction of nodes w/ image
+    else:
+        spread = counts[1] / counts[0].clamp(min=1.0)
     iid = bp.image_ids.clamp(0, snap.image_bytes.shape[1] - 1).long()  # [B, IM]
     use = (bp.image_ids >= 0).float()
     sizes = snap.image_bytes.T[iid] * use[..., None]  # [B, IM, N]
@@ -359,10 +371,10 @@ def _prefer_avoid(snap, bp: PodBatch) -> torch.Tensor:
 _STAGE_A_ELEMENTS = 1 << 26
 
 
-def _pod_static_chunk(snap: DeviceSnapshot, bp: PodBatch) -> Tuple:
+def _pod_static_chunk(snap: DeviceSnapshot, bp: PodBatch, counts=None, base: int = 0) -> Tuple:
     n = snap.valid.shape[0]
-    rows = torch.arange(n, device=snap.valid.device)
-    ns_aff = _node_affinity_required(snap, bp)
+    rows = torch.arange(base, base + n, device=snap.valid.device)
+    ns_aff = _node_affinity_required(snap, bp, base)
     taint_ok, prefer_cnt = _taints(snap, bp)
     unsched_ok = ~snap.unschedulable[None, :] | bp.tolerates_unschedulable[:, None]
     nr = bp.node_name_row[:, None]
@@ -372,18 +384,19 @@ def _pod_static_chunk(snap: DeviceSnapshot, bp: PodBatch) -> Tuple:
     static_ok = snap.valid[None, :] & ns_aff & taint_ok & unsched_ok & name_ok
     # Scores computed regardless of feasibility; normalization masks later.
     aff_score = _node_affinity_score(snap, bp)
-    img = _image_locality(snap, bp)
+    img = _image_locality(snap, bp, counts)
     avoid = _prefer_avoid(snap, bp)
     return static_ok, ns_aff, aff_score, prefer_cnt, img, avoid
 
 
-def _pod_static(snap: DeviceSnapshot, batch: PodBatch) -> Tuple:
+def _pod_static(snap: DeviceSnapshot, batch: PodBatch, counts=None, base: int = 0) -> Tuple:
     """Stage A for a batch: static mask/score pieces, each [P, N].
     Returns (static_ok, ns_aff_mask, aff_score, prefer_cnt, img, avoid).
     Shared by the schedule kernel, the preemption what-if and the victim
     selection (static_ok is exactly the UnschedulableAndUnresolvable
     boundary: nodes failing it cannot be helped by evictions,
-    generic_scheduler.go:1033)."""
+    generic_scheduler.go:1033). On one shard's rows, `counts` are every
+    node's image counts and `base` the shard's first global row."""
     n = snap.valid.shape[0]
     p = batch.valid.shape[0]
     width = max(
@@ -395,9 +408,9 @@ def _pod_static(snap: DeviceSnapshot, batch: PodBatch) -> Tuple:
     )
     step = max(1, _STAGE_A_ELEMENTS // (width * max(n, 1)))
     if p <= step:
-        return _pod_static_chunk(snap, batch)
+        return _pod_static_chunk(snap, batch, counts, base)
     parts = [
-        _pod_static_chunk(snap, PodBatch(*(f[s:s + step] for f in batch)))
+        _pod_static_chunk(snap, PodBatch(*(f[s:s + step] for f in batch)), counts, base)
         for s in range(0, p, step)
     ]
     return tuple(torch.cat(x) for x in zip(*parts))
@@ -415,22 +428,57 @@ def _gather_counts(counts: torch.Tensor, sid: torch.Tensor) -> torch.Tensor:
     return torch.where((sid >= 0)[:, None], c.to(torch.float32), 0.0)
 
 
-def _domain_ops(dom: torch.Tensor, weights: torch.Tensor, ok: torch.Tensor, v_cap: int):
-    """Per-topology-domain reduction for K terms at once (the reference's
-    per-term ``_domain_ops``, vmapped): ``weights`` [K, N] are summed per
-    domain (dom [K, N], the node's value id of each term's topology key,
-    -1 = key absent) over the nodes where ``ok`` (has the key and is
-    eligible). One scatter_add_ into [K, v_cap + 1]; the spare segment
-    v_cap takes the rows the reference's segment_sum drops. Returns
-    (node_sum [K, N], sums [K, v_cap], seg [K, N])."""
+def _domain_sums(dom: torch.Tensor, weights: torch.Tensor, ok: torch.Tensor, v_cap: int):
+    """Per-topology-domain reduction for K terms at once (the first half
+    of the reference's per-term ``_domain_ops``, vmapped): ``weights``
+    [K, N] are summed per domain (dom [K, N], the node's value id of each
+    term's topology key, -1 = key absent) over the nodes where ``ok``
+    (has the key and is eligible). One scatter_add_ into [K, v_cap + 1];
+    the spare segment v_cap takes the rows the reference's segment_sum
+    drops. Returns (sums [K, v_cap], seg [K, N]): on a shard the sums are
+    its partial sums (domain ids are global, so partials add up)."""
     seg = torch.where(ok, dom, v_cap).clamp(max=v_cap).long()
     sums = torch.zeros(
         (dom.shape[0], v_cap + 1), dtype=torch.float32, device=dom.device
     ).scatter_add_(1, seg, torch.where(ok, weights, 0.0))[:, :v_cap]
-    node_sum = torch.where(
+    return sums, seg
+
+
+def _node_sums(dom: torch.Tensor, sums: torch.Tensor, v_cap: int) -> torch.Tensor:
+    """Each node's own domain's sum (the second half of ``_domain_ops``),
+    [K, N]; 0 where the node lacks the key."""
+    return torch.where(
         dom >= 0, sums.gather(1, dom.clamp(0, v_cap - 1).long()), 0.0
     )
-    return node_sum, sums, seg
+
+
+class Merge(NamedTuple):
+    """A merge across the shards of a node-sharded kernel, asked for by a
+    block generator (``ScheduleBatch._block``, ``WaveKernel._stage_a``):
+    ``op`` is "sum", "max" or "any" (the merged value goes back to every
+    shard), "argmax" (``value`` = (local maximum, its global row): the
+    global row of the first maximum, to every shard) or "top" (``value`` =
+    (scores, global rows), each shard's stable descending top list: the
+    global top ``m`` ordered by score, ties by global row, kept on the
+    mesh's first device). On one
+    device every merge is the identity (:func:`run_local`)."""
+
+    op: str
+    value: Any
+    m: int = 0
+
+
+def run_local(gen):
+    """Drive a block generator over the whole snapshot on one device:
+    each merge request is answered with its own value (one block merges
+    with nothing), so the generator's launches are exactly its own."""
+    sent = None
+    while True:
+        try:
+            req = gen.send(sent)
+        except StopIteration as stop:
+            return stop.value
+        sent = {k: r.value for k, r in req.items()}
 
 
 class ScheduleBatch:
@@ -448,15 +496,38 @@ class ScheduleBatch:
         self.hard_pod_affinity_weight = float(hard_pod_affinity_weight)
 
     def __call__(self, snap: DeviceSnapshot, batch: PodBatch, weights, noise) -> BatchResult:
+        n = snap.valid.shape[0]
+        p = batch.valid.shape[0]
+        if tuple(noise.shape) != (p, n):
+            raise ValueError(f"tie noise is {tuple(noise.shape)}, want {(p, n)}")
+        return run_local(self._block(snap, batch, weights, noise))
+
+    def _block(self, snap: DeviceSnapshot, batch: PodBatch, weights, noise, shard=None):
+        """The kernel on one block of node rows: the whole snapshot
+        (shard None), or rows [shard, shard + N_block) of a node-sharded
+        one (``parallel/sharded.ShardedScheduleBatch``), with `noise` the
+        block's columns of the [P, N] draw. A generator: every pod step
+        yields its cross-shard merges as :class:`Merge` requests — the
+        domain sums and their presence, the score maxima and the feasible
+        count, the best score, and (sharded) the argmax, ties to the
+        lower global row — and commits the carry only where the chosen
+        row is the block's own. Returns the block's BatchResult
+        (``resolvable`` has the block's columns; the rest is global)."""
         v_cap = self.v_cap
         dev = snap.valid.device
         f32 = torch.float32
         n = snap.valid.shape[0]
         p = batch.valid.shape[0]
-        if tuple(noise.shape) != (p, n):
-            raise ValueError(f"tie noise is {tuple(noise.shape)}, want {(p, n)}")
         weights = torch.as_tensor(weights, dtype=f32).to(dev)
-        static_ok, ns_aff, aff_score, prefer_cnt, img, avoid = _pod_static(snap, batch)
+        counts = None
+        if shard is not None:
+            # the image spread is over every node
+            n_valid, have = _image_counts(snap)
+            got = yield {"n_valid": Merge("sum", n_valid), "have": Merge("sum", have)}
+            counts = (got["n_valid"], got["have"])
+        static_ok, ns_aff, aff_score, prefer_cnt, img, avoid = _pod_static(
+            snap, batch, counts, shard or 0
+        )
 
         # ---- batch-invariant pieces ----
         valid = snap.valid
@@ -537,13 +608,14 @@ class ScheduleBatch:
         et_x = torch.zeros_like(snap.eterm_w)
         inf = float("inf")
 
-        def norm_max(x, feasible):
-            mx = torch.where(feasible, x, -inf).amax()
+        def masked_max(x, feasible):
+            return torch.where(feasible, x, -inf).amax()
+
+        def norm_max(x, mx):
             safe = torch.where(torch.isfinite(mx) & (mx > 0), mx, 1.0)
             return (x / safe * 100.0).clamp(0.0, 100.0)
 
-        def norm_invert(x, feasible):  # lower raw -> higher score
-            mx = torch.where(feasible, x, -inf).amax()
+        def norm_invert(x, mx):  # lower raw -> higher score
             ok = torch.isfinite(mx) & (mx > 0)
             safe = torch.where(ok, mx, 1.0)
             return torch.where(ok, (safe - x) / safe * 100.0, 100.0)
@@ -564,12 +636,15 @@ class ScheduleBatch:
             has_key = dom >= 0
             ok = has_key & valid
             ok[:n_c] &= ns_aff[i]  # spread counts only affinity-eligible nodes
-            node_sum, sums, seg = _domain_ops(dom, w, ok, v_cap)
-
-            # --- PodTopologySpread (podtopologyspread/filtering.go) ---
+            sums, seg = _domain_sums(dom, w, ok, v_cap)
             present = torch.zeros(
                 (n_c, v_cap + 1), dtype=torch.int32, device=dev
             ).scatter_reduce_(1, seg[:n_c], ok[:n_c].to(torch.int32), "amax")
+            got = yield {"sums": Merge("sum", sums), "present": Merge("max", present)}
+            sums, present = got["sums"], got["present"]
+            node_sum = _node_sums(dom, sums, v_cap)
+
+            # --- PodTopologySpread (podtopologyspread/filtering.go) ---
             min_dom = torch.where(present[:, :v_cap] > 0, sums[:n_c], inf).amin(dim=1)
             m = torch.where(torch.isfinite(min_dom), min_dom, 0.0)
             ns_s = node_sum[:n_c]
@@ -619,44 +694,67 @@ class ScheduleBatch:
             # interpod: shift-free max-|score| normalization
             # (interpodaffinity/scoring.go:287-310)
             ip_max = torch.where(feasible, interpod.abs(), 0.0).amax()
-            ip_norm = torch.where(ip_max > 0, interpod / ip_max * 100.0, 0.0)
             # DefaultPodTopologySpread: same-service pods per node; MAX over
             # the matching services
             svc_cnt = torch.where(
                 batch.match_svc[i][None, :], sel_c.to(f32), 0.0
             ).amax(dim=1)
+            # the normalizations' maxima and the feasible count are over
+            # every node: merged across shards
+            aff_i, prefer_i = aff_score[i], prefer_cnt[i]
+            got = yield {
+                "ip_max": Merge("max", ip_max),
+                "aff": Merge("max", masked_max(aff_i, feasible)),
+                "prefer": Merge("max", masked_max(prefer_i, feasible)),
+                "spread": Merge("max", masked_max(spread_penalty, feasible)),
+                "svc": Merge("max", masked_max(svc_cnt, feasible)),
+                "cost": Merge("max", masked_max(cost_f, feasible)),
+                "energy": Merge("max", masked_max(energy_f, feasible)),
+                "feas": Merge("sum", feasible.sum(dtype=torch.int32)),
+            }
+            ip_max, feas_count = got["ip_max"], got["feas"]
+            ip_norm = torch.where(ip_max > 0, interpod / ip_max * 100.0, 0.0)
             comps = torch.stack(
                 [
                     least,
                     most,
                     balanced,
                     rtc,
-                    norm_max(aff_score[i], feasible),
-                    norm_invert(prefer_cnt[i], feasible),
+                    norm_max(aff_i, got["aff"]),
+                    norm_invert(prefer_i, got["prefer"]),
                     img[i],
                     avoid[i],
-                    norm_invert(spread_penalty, feasible),
+                    norm_invert(spread_penalty, got["spread"]),
                     ip_norm,
-                    norm_invert(svc_cnt, feasible),
-                    norm_invert(cost_f, feasible),
-                    norm_invert(energy_f, feasible),
+                    norm_invert(svc_cnt, got["svc"]),
+                    norm_invert(cost_f, got["cost"]),
+                    norm_invert(energy_f, got["energy"]),
                 ]
             )  # [K, N]
             total_score = _dot_fma(weights, comps)
 
             # --- select: argmax with uniform random tie-break ---
             keyed = torch.where(feasible, total_score, -inf)
-            best = keyed.amax()
+            best = (yield {"best": Merge("max", keyed.amax())})["best"]
             pick = torch.where(feasible & (keyed == best), noise[i], -1.0)
             chosen = pick.argmax()
-            feas_count = feasible.sum(dtype=torch.int32)
+            if shard is not None:
+                # the first maximum over every node: ties to the lower
+                # global row, as one device's argmax
+                chosen = (yield {"pick": Merge("argmax", (pick.amax(), chosen + shard))})["pick"]
             placed = (feas_count > 0) & batch.valid[i]
             chosen_out.append(torch.where(placed, chosen, -1))
             score_out.append(torch.where(placed, best, -inf))
             feas_out.append(feas_count)
 
-            # --- commit to the carry: zeros when not placed ---
-            row = chosen.view(1)
+            # --- commit to the carry: zeros when not placed (or, on a
+            # shard, when the chosen row is another block's) ---
+            if shard is None:
+                row = chosen.view(1)
+            else:
+                local = chosen - shard
+                placed = placed & (local >= 0) & (local < n)
+                row = local.clamp(0, n - 1).view(1)
             cur.index_add_(0, row, (delta[i] * placed)[None])
             et_x.index_add_(0, row, (batch.eterm_add[i] * placed)[None])
 

@@ -66,6 +66,7 @@ on the copy's CUDA event.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any, NamedTuple
 
 import numpy as np
@@ -82,17 +83,20 @@ from .encoding import (
 )
 from .fit_kernels import fit_mask, fit_mask_plain
 from .lattice import (
+    Merge,
     SC_BALANCED,
     SC_LEAST_ALLOC,
     SC_MOST_ALLOC,
     SC_REQ_TO_CAP,
     _dot_fma,
+    _image_counts,
     _image_locality,
     _label_cols,
     _node_affinity_required,
     _node_affinity_score,
     _prefer_avoid,
     _taints,
+    run_local,
 )
 from .templates import PairTable, TemplateBatch
 
@@ -271,12 +275,111 @@ class WaveKernel:
             raise ValueError(f"tie noise is {tuple(noise.shape)}, want {(P, m_c)}")
 
         # ================= Stage A: per-template statics =================
-        ns_aff = _node_affinity_required(snap, tpl)  # [TPL, N]
+        st = run_local(self._stage_a(snap, tpl, pt, weights, m_c, None))
+        top_i, feasible0 = st["top_i"], st["feasible0"]
+        t_of, pinned, pin_rows = _pod_rows(tb, TPL, n)
+        pin_feas = feasible0[t_of, pin_rows]
+        cand_slot, cand_nodes, cand_valid = _candidates(
+            tb, st["top_v"], top_i, noise, t_of, pinned, pin_rows, pin_feas, n, m_c
+        )
+
+        # ---- per-wave candidate-column statics (hoisted gathers) ----
+        free0, dom_j, cnt0 = st["free0"], st["dom_j"], st["cnt0"]
+        c = SimpleNamespace(
+            tb=tb, pt=pt, weights=weights, n=n, m_c=m_c, t_of=t_of,
+            pinned=pinned, top_i=top_i, cand_slot=cand_slot,
+            cand_nodes=cand_nodes, cand_valid=cand_valid,
+            base_dom=st["base_dom"], present_dom=st["present_dom"],
+            tot0=st["tot0"], rtc=st["rtc_fn"],
+        )
+        c.static_ok_c = st["static_ok"].gather(1, top_i)  # [TPL, M]
+        c.free0_cols = free0[top_i]  # [TPL, M, R]
+        c.port0_cols = snap.port_counts[top_i]  # [TPL, M, PV]
+        dom_jc = dom_j[:, top_i]  # [J, TPL, M]
+        c.dom_cols = dom_jc.permute(1, 0, 2)  # [TPL, J, M]
+        c.cnt0_cols = cnt0[:, top_i].permute(1, 0, 2)  # [TPL, J, M]
+        c.dom_cols_flat = dom_jc.reshape(J, TPL * m_c).clamp(0, v_cap - 1).long()
+        if self.has_pinned:
+            c.dom_pin = dom_j[:, pin_rows]  # [J, P]
+            c.dom_pin_flat = c.dom_pin.clamp(0, v_cap - 1).long()
+            c.cnt0_pin = cnt0[:, pin_rows]  # [J, P]
+            c.pin_req = tpl.req[t_of]  # [P, R]
+            c.pin_ports = tpl.port_mask[t_of]  # [P, PV]
+
+        if self.score_refresh:
+            # static pieces of the per-wave candidate re-score: the
+            # NON-resource score residual at each candidate, plus the
+            # batch-start nonzero/alloc cpu+mem columns there
+            w_res = (
+                weights[SC_LEAST_ALLOC] * st["least"]
+                + weights[SC_MOST_ALLOC] * st["most"]
+                + weights[SC_BALANCED] * st["balanced"]
+                + weights[SC_REQ_TO_CAP] * st["rtc"]
+            )  # [TPL, N]
+            c.cand_resid = (st["total_score"] - w_res)[t_of].gather(1, cand_nodes)  # [P, M]
+            c.alloc_cpu_c = snap.allocatable[:, RES_CPU][cand_nodes].to(f32).clamp(min=1.0)
+            c.alloc_mem_c = snap.allocatable[:, RES_MEM][cand_nodes].to(f32).clamp(min=1.0)
+            c.nz_cpu0_c = snap.nonzero_req[:, RES_CPU][cand_nodes]
+            c.nz_mem0_c = snap.nonzero_req[:, RES_MEM][cand_nodes]
+            c.pod_nz_cpu = tpl.nonzero_req[:, RES_CPU][t_of][:, None]
+            c.pod_nz_mem = tpl.nonzero_req[:, RES_MEM][t_of][:, None]
+
+        # ================= Stage B: waves =================
+        c.req_d = torch.zeros_like(snap.requested)
+        c.port_d = torch.zeros_like(snap.port_counts)
+        c.nz2_d = torch.zeros((n, 2), dtype=snap.nonzero_req.dtype, device=dev)
+        rows = _AllRows(free0, snap.port_counts, dom_j, pin_rows)
+        placed, chosen, req_t, ports_t = self._waves(c, rows)
+
+        # ================= finalize: commit occupancy to snapshot ==========
+        # Every field the host's add_pod touches is committed here (incl.
+        # prio_req by priority band), IN PLACE, so the host replay can skip
+        # the dirty-row re-upload (encoding.add_pod device_synced=True).
+        _commit(
+            snap, torch.where(placed, chosen, 0), placed[:, None], tb, t_of,
+            req_t, ports_t,
+        )
+        score_at = st["total_score"][t_of, chosen.clamp(0, n - 1)]
+        return snap, _result(
+            tb, t_of, pinned, pin_feas, st["feas_cnt_tpl"], placed, chosen,
+            score_at, st["resolvable_tpl"], feasible0,
+        )
+
+    def _stage_a(self, snap, tpl, pt, weights, m_c: int, shard=None):
+        """Stage A on one block of node rows: the whole snapshot on one
+        device (shard None), or one shard's rows whose first global row is
+        `shard` (``parallel/sharded.ShardedWaveKernel``). A generator: it yields
+        the merges across shards it needs as :class:`~.lattice.Merge`
+        requests — the per-(pair, domain) sums and their presence, the
+        normalizations' maxima with the feasible counts, and the top-M
+        candidates — and takes back the merged tensors; ``run_local``
+        answers every merge with its own value on one device. Returns a
+        dict of the block's Stage-A tensors, with ``top_v``/``top_i``
+        (global rows) merged.
+
+        The domain sums are float32 (``w_j`` of an eterm pair is the float
+        ``eterm_w``); partial sums over shards add up to exactly the one
+        device's sum as long as every weight is integral and every sum
+        stays under 2**24, which the encoder's counts and integer term
+        weights keep."""
+        v_cap = self.v_cap
+        dev = snap.valid.device
+        f32 = torch.float32
+        TPL = tpl.valid.shape[0]
+        J = pt.col.shape[0]
+
+        counts = None
+        if shard is not None:
+            # the image spread is over every node
+            n_valid, have = _image_counts(snap)
+            got = yield {"n_valid": Merge("sum", n_valid), "have": Merge("sum", have)}
+            counts = (got["n_valid"], got["have"])
+        ns_aff = _node_affinity_required(snap, tpl, shard or 0)  # [TPL, N]
         taint_ok, prefer_cnt = _taints(snap, tpl)
         unsched_ok = ~snap.unschedulable[None, :] | tpl.tolerates_unschedulable[:, None]
         static_ok = snap.valid[None, :] & ns_aff & taint_ok & unsched_ok
         aff_score = _node_affinity_score(snap, tpl)
-        img = _image_locality(snap, tpl)
+        img = _image_locality(snap, tpl, counts)
         avoid = _prefer_avoid(snap, tpl)
 
         free0 = snap.allocatable - snap.requested  # [N, R]
@@ -306,6 +409,11 @@ class WaveKernel:
         present_dom = torch.zeros((J, v_cap + 1), dtype=torch.int32, device=dev).scatter_reduce_(
             1, seg, elig_j.to(torch.int32), "amax"
         )[:, :v_cap] > 0  # [J, V] — wave-invariant
+        # domain ids are global: the shards' partial sums add up
+        got = yield {
+            "base_dom": Merge("sum", base_dom), "present_dom": Merge("any", present_dom),
+        }
+        base_dom, present_dom = got["base_dom"], got["present_dom"]
         cnt0 = torch.where(
             dom_j >= 0, base_dom.gather(1, dom_j.clamp(0, v_cap - 1).long()), 0.0
         )  # [J, N]
@@ -359,19 +467,19 @@ class WaveKernel:
         ).sum(dim=1)
         ip = ip_et + ip_pref  # [TPL, N]
 
-        def norm_max(x, feas):
-            mx = torch.where(feas, x, -float("inf")).amax(dim=1, keepdim=True)
+        def masked_max(x):
+            return torch.where(feasible0, x, -float("inf")).amax(dim=1, keepdim=True)
+
+        def norm_max(x, mx):
             safe = torch.where(torch.isfinite(mx) & (mx > 0), mx, 1.0)
             return (x / safe * 100.0).clamp(0.0, 100.0)
 
-        def norm_invert(x, feas):
-            mx = torch.where(feas, x, -float("inf")).amax(dim=1, keepdim=True)
+        def norm_invert(x, mx):
             ok = torch.isfinite(mx) & (mx > 0)
             safe = torch.where(ok, mx, 1.0)
             return torch.where(ok, (safe - x) / safe * 100.0, 100.0)
 
         ip_mx = torch.where(feasible0, ip.abs(), 0.0).amax(dim=1, keepdim=True)
-        ip_norm = torch.where(ip_mx > 0, ip / ip_mx * 100.0, 0.0)
 
         # DefaultPodTopologySpread: same-service pods per node through the
         # service-derived sel_counts columns; MAX over matching services
@@ -381,21 +489,34 @@ class WaveKernel:
 
         cost_col = snap.cost_milli.to(f32)[None, :].expand_as(least)
         energy_col = snap.energy_milli.to(f32)[None, :].expand_as(least)
+        # every normalization divides by a maximum over all N nodes
+        got = yield {
+            "ip_mx": Merge("max", ip_mx),
+            "aff": Merge("max", masked_max(aff_score)),
+            "prefer": Merge("max", masked_max(prefer_cnt)),
+            "spread": Merge("max", masked_max(spread_pen0)),
+            "svc": Merge("max", masked_max(svc_cnt)),
+            "cost": Merge("max", masked_max(cost_col)),
+            "energy": Merge("max", masked_max(energy_col)),
+            "feas_cnt": Merge("sum", feas_cnt_tpl),
+        }
+        ip_mx = got["ip_mx"]
+        ip_norm = torch.where(ip_mx > 0, ip / ip_mx * 100.0, 0.0)
         comps = torch.stack(
             [
                 least,
                 most,
                 balanced,
                 rtc,
-                norm_max(aff_score, feasible0),
-                norm_invert(prefer_cnt, feasible0),
+                norm_max(aff_score, got["aff"]),
+                norm_invert(prefer_cnt, got["prefer"]),
                 img,
                 avoid,
-                norm_invert(spread_pen0, feasible0),
+                norm_invert(spread_pen0, got["spread"]),
                 ip_norm,
-                norm_invert(svc_cnt, feasible0),
-                norm_invert(cost_col, feasible0),
-                norm_invert(energy_col, feasible0),
+                norm_invert(svc_cnt, got["svc"]),
+                norm_invert(cost_col, got["cost"]),
+                norm_invert(energy_col, got["energy"]),
             ]
         )  # [K, TPL, N]
         total_score = _dot_fma(weights, comps)  # [TPL, N]
@@ -403,72 +524,39 @@ class WaveKernel:
         # ---- top-M candidates per template (stable: ties by lower index) ----
         masked = torch.where(feasible0, total_score, -float("inf"))
         top_v, top_i = torch.sort(masked, dim=1, descending=True, stable=True)
-        top_v, top_i = top_v[:, :m_c], top_i[:, :m_c]  # [TPL, M]
+        k = min(m_c, masked.shape[1])  # a shard may hold fewer rows than M
+        top_v, top_i = top_v[:, :k], top_i[:, :k]  # [TPL, M]
+        if shard:
+            top_i = top_i + shard
+        top_v, top_i = (yield {"top": Merge("top", (top_v, top_i), m_c)})["top"]
+        return {
+            "static_ok": static_ok, "free0": free0, "dom_j": dom_j, "cnt0": cnt0,
+            "feasible0": feasible0, "resolvable_tpl": resolvable_tpl,
+            "feas_cnt_tpl": got["feas_cnt"], "total_score": total_score,
+            "least": least, "most": most, "balanced": balanced, "rtc": rtc,
+            "rtc_fn": _rtc, "base_dom": base_dom, "present_dom": present_dom,
+            "tot0": tot0, "top_v": top_v, "top_i": top_i,
+        }
 
-        # ---- per-pod candidate ordering ----
-        t_of = tb.pod_tpl.clamp(0, TPL - 1).long()  # [P]
-        # top_v is sorted descending; equal-score runs form groups. Order
-        # candidates by score-group, uniformly random within a group.
-        steps = torch.zeros((TPL, m_c), dtype=f32, device=dev)
-        steps[:, 1:] = (top_v[:, 1:] != top_v[:, :-1]).to(f32)
-        grp_id = torch.cumsum(steps, dim=1)  # [TPL, M]
-        pod_v = top_v[t_of]  # [P, M]
-        order = torch.argsort(grp_id[t_of] + noise, dim=1, stable=True)  # [P, M]
-        # order doubles as the SLOT index into the template's top-M column
-        # list: per-wave feasibility is evaluated once per (template,
-        # column) at [TPL, M] and pods read it through cand_slot
-        cand_slot = order
-        cand_nodes = top_i[t_of].gather(1, order)  # [P, M]
-        cand_valid = torch.isfinite(pod_v.gather(1, order))
-        # pinned pods: single candidate = the pinned row (still filter-checked)
-        pinned = tb.pod_name_row >= 0
-        pin_rows = tb.pod_name_row.clamp(0, n - 1).long()  # [P]
-        slot0 = (torch.arange(m_c, device=dev) == 0)[None, :]
-        cand_nodes = torch.where(
-            pinned[:, None], torch.where(slot0, pin_rows[:, None], 0), cand_nodes
-        )
-        cand_slot = torch.where(pinned[:, None], 0, cand_slot)
-        pin_feas = feasible0[t_of, pin_rows]
-        cand_valid = torch.where(
-            pinned[:, None], slot0 & pin_feas[:, None], cand_valid
-        )
-        # spec.nodeName names a node the cache doesn't know (row -2): the
-        # NodeName filter fails everywhere -> unschedulable, never placed
-        cand_valid = cand_valid & (tb.pod_name_row != -2)[:, None]
-        cand_nodes = cand_nodes.clamp(0, n - 1)
-
-        # ---- per-wave candidate-column statics (hoisted gathers) ----
-        static_ok_c = static_ok.gather(1, top_i)  # [TPL, M]
-        free0_cols = free0[top_i]  # [TPL, M, R]
-        port0_cols = snap.port_counts[top_i]  # [TPL, M, PV]
-        dom_jc = dom_j[:, top_i]  # [J, TPL, M]
-        dom_cols = dom_jc.permute(1, 0, 2)  # [TPL, J, M]
-        cnt0_cols = cnt0[:, top_i].permute(1, 0, 2)  # [TPL, J, M]
-        dom_cols_flat = dom_jc.reshape(J, TPL * m_c).clamp(0, v_cap - 1).long()
-        if self.has_pinned:
-            dom_pin = dom_j[:, pin_rows]  # [J, P]
-            dom_pin_flat = dom_pin.clamp(0, v_cap - 1).long()
-            cnt0_pin = cnt0[:, pin_rows]  # [J, P]
-            pin_req = tpl.req[t_of]  # [P, R]
-            pin_ports = tpl.port_mask[t_of]  # [P, PV]
-
-        if self.score_refresh:
-            # static pieces of the per-wave candidate re-score: the
-            # NON-resource score residual at each candidate, plus the
-            # batch-start nonzero/alloc cpu+mem columns there
-            w_res = (
-                weights[SC_LEAST_ALLOC] * least
-                + weights[SC_MOST_ALLOC] * most
-                + weights[SC_BALANCED] * balanced
-                + weights[SC_REQ_TO_CAP] * rtc
-            )  # [TPL, N]
-            cand_resid = (total_score - w_res)[t_of].gather(1, cand_nodes)  # [P, M]
-            alloc_cpu_c = snap.allocatable[:, RES_CPU][cand_nodes].to(f32).clamp(min=1.0)
-            alloc_mem_c = snap.allocatable[:, RES_MEM][cand_nodes].to(f32).clamp(min=1.0)
-            nz_cpu0_c = snap.nonzero_req[:, RES_CPU][cand_nodes]
-            nz_mem0_c = snap.nonzero_req[:, RES_MEM][cand_nodes]
-            pod_nz_cpu = tpl.nonzero_req[:, RES_CPU][t_of][:, None]
-            pod_nz_mem = tpl.nonzero_req[:, RES_MEM][t_of][:, None]
+    def _waves(self, c, rows):
+        """Stage B on the merged candidates: `c` holds the batch's pod-side
+        tensors, the [TPL, M] candidate-column statics and the deltas;
+        `rows` answers the loop's reads of node rows outside those columns
+        (``_AllRows`` on one device, ``parallel/sharded._ColumnRows`` on a
+        mesh). Returns (placed, chosen, req_t, ports_t)."""
+        v_cap = self.v_cap
+        tb, pt, weights, t_of = c.tb, c.pt, c.weights, c.t_of
+        tpl = tb.tpl
+        dev = t_of.device
+        f32 = torch.float32
+        n, m_c = c.n, c.m_c
+        TPL = tpl.valid.shape[0]
+        P = tb.pod_tpl.shape[0]
+        J = pt.col.shape[0]
+        top_i, cand_slot, cand_nodes = c.top_i, c.cand_slot, c.cand_nodes
+        cand_valid, pinned = c.cand_valid, c.pinned
+        req_d, port_d, nz2_d = c.req_d, c.port_d, c.nz2_d
+        base_dom, present_dom = c.base_dom, c.present_dom
 
         # which pods participate in pair exclusivity (contributor or
         # hard-checker), per pair
@@ -507,49 +595,43 @@ class WaveKernel:
         pod_idx_mat = pods[:, None].expand(P, J).reshape(-1)
         dump = J * (v_cap + 2)
 
-        # ================= Stage B: waves =================
         placed = torch.zeros(P, dtype=torch.bool, device=dev)
         chosen = torch.full((P,), -1, dtype=torch.int64, device=dev)
-        req_d = torch.zeros_like(snap.requested)
-        port_d = torch.zeros_like(snap.port_counts)
         dom_d = torch.zeros((J, v_cap), dtype=f32, device=dev)
-        nz2_d = torch.zeros((n, 2), dtype=snap.nonzero_req.dtype, device=dev)
         for _ in range(self.n_waves):
-            free_d = free0 - req_d  # [N, R] (prefix-fit still needs full N)
+            rows.wave(req_d, port_d)
             # ---- candidate-column re-checks: [TPL, M], never [TPL, N] ----
-            free_c = free0_cols - req_d[top_i]  # [TPL, M, R]
+            free_c = c.free0_cols - req_d[top_i]  # [TPL, M, R]
             fits_w_c = (
                 (tpl.req[:, None, :] == 0) | (tpl.req[:, None, :] <= free_c)
             ).all(dim=-1)  # [TPL, M]
             ports_w_c = (
-                tpl.port_mask[:, None, :] & ((port0_cols + port_d[top_i]) > 0)
+                tpl.port_mask[:, None, :] & ((c.port0_cols + port_d[top_i]) > 0)
             ).any(dim=-1)  # [TPL, M]
-            dd = dom_d.gather(1, dom_cols_flat).reshape(J, TPL, m_c)
-            cnt_w_cols = cnt0_cols + torch.where(
-                dom_cols >= 0, dd.permute(1, 0, 2), 0.0
+            dd = dom_d.gather(1, c.dom_cols_flat).reshape(J, TPL, m_c)
+            cnt_w_cols = c.cnt0_cols + torch.where(
+                c.dom_cols >= 0, dd.permute(1, 0, 2), 0.0
             )  # [TPL, J, M]
             sums_w = base_dom + dom_d  # [J, V]
             min_w = torch.where(present_dom, sums_w, float("inf")).amin(dim=1)
-            tot_w = tot0 + dom_d.sum(dim=1)
+            tot_w = c.tot0 + dom_d.sum(dim=1)
 
-            sb, _, ao, ab, eb = _pair_verdicts(pt, cnt_w_cols, min_w, tot_w, dom_cols)
+            sb, _, ao, ab, eb = _pair_verdicts(pt, cnt_w_cols, min_w, tot_w, c.dom_cols)
             wave_feas_c = (
-                static_ok_c & fits_w_c & ~ports_w_c & ~sb & ao & ~ab & ~eb
+                c.static_ok_c & fits_w_c & ~ports_w_c & ~sb & ao & ~ab & ~eb
             )  # [TPL, M]
 
             cand_feas = wave_feas_c[t_of[:, None], cand_slot] & cand_valid
             if self.has_pinned:
                 # pinned pods: live resource/port fit at the pinned row +
                 # live pair verdicts there (the row may be outside top-M)
-                pin_free = free_d[pin_rows]  # [P, R]
-                pin_fit = ((pin_req == 0) | (pin_req <= pin_free)).all(dim=-1)
-                pin_port_bad = (
-                    pin_ports & ((snap.port_counts + port_d)[pin_rows] > 0)
-                ).any(dim=-1)
-                dd_pin = dom_d.gather(1, dom_pin_flat)
-                cnt_pin = cnt0_pin + torch.where(dom_pin >= 0, dd_pin, 0.0)
+                pin_free = rows.pin_free()  # [P, R]
+                pin_fit = ((c.pin_req == 0) | (c.pin_req <= pin_free)).all(dim=-1)
+                pin_port_bad = (c.pin_ports & (rows.pin_ports_used() > 0)).any(dim=-1)
+                dd_pin = dom_d.gather(1, c.dom_pin_flat)
+                cnt_pin = c.cnt0_pin + torch.where(c.dom_pin >= 0, dd_pin, 0.0)
                 sb_p, _, ao_p, ab_p, eb_p = _pair_verdicts(
-                    pt, cnt_pin[None], min_w, tot_w, dom_pin[None]
+                    pt, cnt_pin[None], min_w, tot_w, c.dom_pin[None]
                 )  # each [TPL, P]
                 pair_ok_pin = (~sb_p & ao_p & ~ab_p & ~eb_p)[t_of, pods]  # [P]
                 pin_ok_w = pin_fit & ~pin_port_bad & pair_ok_pin
@@ -564,12 +646,12 @@ class WaveKernel:
                 # pre-shuffled within equal-static-score groups, so a
                 # plain argmax (first maximum) inherits the tie-break
                 cpu_f_c = (
-                    (nz_cpu0_c + nz2_d[:, 0][cand_nodes] + pod_nz_cpu).to(f32)
-                    / alloc_cpu_c
+                    (c.nz_cpu0_c + nz2_d[:, 0][cand_nodes] + c.pod_nz_cpu).to(f32)
+                    / c.alloc_cpu_c
                 ).clamp(0.0, 1.0)
                 mem_f_c = (
-                    (nz_mem0_c + nz2_d[:, 1][cand_nodes] + pod_nz_mem).to(f32)
-                    / alloc_mem_c
+                    (c.nz_mem0_c + nz2_d[:, 1][cand_nodes] + c.pod_nz_mem).to(f32)
+                    / c.alloc_mem_c
                 ).clamp(0.0, 1.0)
                 res_c = (
                     weights[SC_LEAST_ALLOC]
@@ -577,10 +659,10 @@ class WaveKernel:
                     + weights[SC_MOST_ALLOC] * ((cpu_f_c + mem_f_c) * 50.0)
                     + weights[SC_BALANCED]
                     * ((1.0 - (cpu_f_c - mem_f_c).abs()) * 100.0)
-                    + weights[SC_REQ_TO_CAP] * _rtc(cpu_f_c, mem_f_c)
+                    + weights[SC_REQ_TO_CAP] * c.rtc(cpu_f_c, mem_f_c)
                 )
                 score_c = torch.where(
-                    cand_feas, cand_resid + res_c, -float("inf")
+                    cand_feas, c.cand_resid + res_c, -float("inf")
                 )  # [P, M]
                 first = score_c.argmax(dim=1)
             else:
@@ -594,17 +676,16 @@ class WaveKernel:
             sort_key = grp * (P + 1) + pods
             vals = req_ext_t * active[:, None].to(torch.int32)
             order_c, excl = _group_prefix_sums(grp, sort_key, vals)
-            free_ext = torch.cat(
-                [free_d, 1 - (snap.port_counts + port_d).clamp(max=1)], dim=1
-            )  # [N, R+PV]
-            node_sorted = cand_n[order_c]
+            # free resources and port room [P, R+PV] at each pod's
+            # candidate, in the prefix-sum order
+            free_sorted = rows.free_ext_sorted(cand_n, first, order_c)
             req_sorted = req_ext_t[order_c]
-            fit_sorted = (excl + req_sorted <= free_ext[node_sorted]).all(dim=1)
+            fit_sorted = (excl + req_sorted <= free_sorted).all(dim=1)
             fit_ok = torch.empty(P, dtype=torch.bool, device=dev)
             fit_ok[order_c] = fit_sorted
 
             # -- (pair, domain) exclusivity --
-            pod_dom = dom_j[:, cand_n].T  # [P, J] domain of candidate per pair
+            pod_dom = rows.dom_at(cand_n, first)  # [P, J] domain of candidate per pair
             carve = (
                 uses_carveout[t_of] & (tot_w == 0)[None, :] & active[:, None]
             )
@@ -660,42 +741,119 @@ class WaveKernel:
             )
             placed = placed | commit
             chosen = torch.where(commit, cand_n, chosen)
+        return placed, chosen, req_t, ports_t
 
-        # ================= finalize: commit occupancy to snapshot ==========
-        # Every field the host's add_pod touches is committed here (incl.
-        # prio_req by priority band), IN PLACE, so the host replay can skip
-        # the dirty-row re-upload (encoding.add_pod device_synced=True).
-        ci = torch.where(placed, chosen, 0)
-        pm = placed[:, None]
-        pb, r = snap.prio_req.shape[1], snap.prio_req.shape[2]
-        band = tb.pod_band.clamp(0, pb - 1).long()
-        snap.requested.index_add_(0, ci, req_t * pm)
-        snap.nonzero_req.index_add_(0, ci, tpl.nonzero_req[t_of] * pm)
-        snap.sel_counts.index_add_(0, ci, tpl.match_sel[t_of].to(torch.int32) * pm)
-        snap.eterm_w.index_add_(0, ci, tpl.eterm_add[t_of] * pm)
-        snap.port_counts.index_add_(0, ci, ports_t * pm)
-        snap.prio_req.view(n * pb, r).index_add_(0, ci * pb + band, req_t * pm)
 
-        feas_cnt = torch.where(tb.pod_valid, feas_cnt_tpl[t_of], 0)
-        feas_cnt = torch.where(
-            pinned, (pin_feas & tb.pod_valid).to(torch.int32), feas_cnt
-        )
-        # unknown pinned node: zero feasible so the pod FAILS instead of
-        # deferring into a requeue hot-loop
-        feas_cnt = torch.where(tb.pod_name_row == -2, 0, feas_cnt)
-        score_out = torch.where(
-            placed, total_score[t_of, chosen.clamp(0, n - 1)], -float("inf")
-        )
-        deferred = tb.pod_valid & ~placed & (feas_cnt > 0)
-        return snap, WaveResult(
-            chosen=torch.where(placed, chosen, -1).to(torch.int32),
-            placed=placed,
-            deferred=deferred,
-            feasible_count=feas_cnt.to(torch.int32),
-            score=score_out,
-            resolvable_tpl=resolvable_tpl,
-            feasible_tpl=feasible0,
-        )
+class _AllRows:
+    """The wave loop's reads of node rows on one device, where Stage A's
+    [N, ...] tensors are at hand: each wave's live free matrix once, and
+    plain row gathers from it."""
+
+    def __init__(self, free0, port_counts, dom_j, pin_rows):
+        self.free0, self.port_counts = free0, port_counts
+        self.dom_j, self.pin_rows = dom_j, pin_rows
+
+    def wave(self, req_d, port_d):
+        self.free_d = self.free0 - req_d  # [N, R] (prefix-fit still needs full N)
+        self.port_d = port_d
+
+    def pin_free(self):
+        return self.free_d[self.pin_rows]
+
+    def pin_ports_used(self):
+        return (self.port_counts + self.port_d)[self.pin_rows]
+
+    def free_ext_sorted(self, cand_n, first, order_c):
+        free_ext = torch.cat(
+            [self.free_d, 1 - (self.port_counts + self.port_d).clamp(max=1)], dim=1
+        )  # [N, R+PV]
+        return free_ext[cand_n[order_c]]
+
+    def dom_at(self, cand_n, first):
+        return self.dom_j[:, cand_n].T
+
+
+def _pod_rows(tb: TemplateBatch, TPL: int, n: int):
+    """Each pod's template, whether it is pinned, and its pinned row."""
+    t_of = tb.pod_tpl.clamp(0, TPL - 1).long()  # [P]
+    pinned = tb.pod_name_row >= 0
+    pin_rows = tb.pod_name_row.clamp(0, n - 1).long()  # [P]
+    return t_of, pinned, pin_rows
+
+
+def _candidates(tb, top_v, top_i, noise, t_of, pinned, pin_rows, pin_feas, n, m_c):
+    """Per-pod candidate order over the template's top-M list: by score
+    group, uniformly random within a group (the tie noise); a pinned pod's
+    one candidate is its pinned row. Returns (cand_slot, cand_nodes,
+    cand_valid), each [P, M]."""
+    dev = top_v.device
+    TPL = top_v.shape[0]
+    # top_v is sorted descending; equal-score runs form groups. Order
+    # candidates by score-group, uniformly random within a group.
+    steps = torch.zeros((TPL, m_c), dtype=torch.float32, device=dev)
+    steps[:, 1:] = (top_v[:, 1:] != top_v[:, :-1]).to(torch.float32)
+    grp_id = torch.cumsum(steps, dim=1)  # [TPL, M]
+    pod_v = top_v[t_of]  # [P, M]
+    order = torch.argsort(grp_id[t_of] + noise, dim=1, stable=True)  # [P, M]
+    # order doubles as the SLOT index into the template's top-M column
+    # list: per-wave feasibility is evaluated once per (template,
+    # column) at [TPL, M] and pods read it through cand_slot
+    cand_slot = order
+    cand_nodes = top_i[t_of].gather(1, order)  # [P, M]
+    cand_valid = torch.isfinite(pod_v.gather(1, order))
+    # pinned pods: single candidate = the pinned row (still filter-checked)
+    slot0 = (torch.arange(m_c, device=dev) == 0)[None, :]
+    cand_nodes = torch.where(
+        pinned[:, None], torch.where(slot0, pin_rows[:, None], 0), cand_nodes
+    )
+    cand_slot = torch.where(pinned[:, None], 0, cand_slot)
+    cand_valid = torch.where(
+        pinned[:, None], slot0 & pin_feas[:, None], cand_valid
+    )
+    # spec.nodeName names a node the cache doesn't know (row -2): the
+    # NodeName filter fails everywhere -> unschedulable, never placed
+    cand_valid = cand_valid & (tb.pod_name_row != -2)[:, None]
+    cand_nodes = cand_nodes.clamp(0, n - 1)
+    return cand_slot, cand_nodes, cand_valid
+
+
+def _commit(snap, ci, pm, tb, t_of, req_t, ports_t):
+    """Add the placed pods (`pm` [P, 1]) into the snapshot's occupancy at
+    rows `ci`, in place: every field the host's add_pod touches."""
+    tpl = tb.tpl
+    n = snap.prio_req.shape[0]
+    pb, r = snap.prio_req.shape[1], snap.prio_req.shape[2]
+    band = tb.pod_band.clamp(0, pb - 1).long()
+    snap.requested.index_add_(0, ci, req_t * pm)
+    snap.nonzero_req.index_add_(0, ci, tpl.nonzero_req[t_of] * pm)
+    snap.sel_counts.index_add_(0, ci, tpl.match_sel[t_of].to(torch.int32) * pm)
+    snap.eterm_w.index_add_(0, ci, tpl.eterm_add[t_of] * pm)
+    snap.port_counts.index_add_(0, ci, ports_t * pm)
+    snap.prio_req.view(n * pb, r).index_add_(0, ci * pb + band, req_t * pm)
+
+
+def _result(tb, t_of, pinned, pin_feas, feas_cnt_tpl, placed, chosen, score_at,
+            resolvable_tpl, feasible_tpl) -> WaveResult:
+    """The kernel's outputs from the wave loop's placements; `score_at` is
+    each pod's template score at its chosen row."""
+    feas_cnt = torch.where(tb.pod_valid, feas_cnt_tpl[t_of], 0)
+    feas_cnt = torch.where(
+        pinned, (pin_feas & tb.pod_valid).to(torch.int32), feas_cnt
+    )
+    # unknown pinned node: zero feasible so the pod FAILS instead of
+    # deferring into a requeue hot-loop
+    feas_cnt = torch.where(tb.pod_name_row == -2, 0, feas_cnt)
+    score_out = torch.where(placed, score_at, -float("inf"))
+    deferred = tb.pod_valid & ~placed & (feas_cnt > 0)
+    return WaveResult(
+        chosen=torch.where(placed, chosen, -1).to(torch.int32),
+        placed=placed,
+        deferred=deferred,
+        feasible_count=feas_cnt.to(torch.int32),
+        score=score_out,
+        resolvable_tpl=resolvable_tpl,
+        feasible_tpl=feasible_tpl,
+    )
 
 
 def make_wave_kernel(

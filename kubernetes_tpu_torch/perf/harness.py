@@ -203,18 +203,21 @@ def run_benchmark(
     trace_dir: Optional[str] = None,
     device: DeviceLike = None,
     server: Optional[APIServer] = None,
+    mesh_devices=None,
 ) -> BenchResult:
     """trace_dir: record a torch.profiler trace (host and, on the card,
     device activity) of the run body into trace_dir/harness_trace.json —
     the device-side profiling hook (the reference's jax-profiler XPlane
     dump). device: None means the CUDA card (raises without one).
     server: an empty APIServer to run on (a caller that checks the
-    bindings afterwards passes its own); None makes a fresh one."""
+    bindings afterwards passes its own); None makes a fresh one.
+    mesh_devices: the Scheduler's (the devices its mesh shards over; None
+    means every visible CUDA device)."""
     dev = resolve_device(device)
     metrics.reset()
     server = server if server is not None else APIServer()
     scfg = sched_config or default_config()
-    sched = Scheduler(server, scfg, device=dev)
+    sched = Scheduler(server, scfg, device=dev, mesh_devices=mesh_devices)
     # presize for a larger target cluster so a warm-up run allocates the
     # same snapshot capacities (same v_cap/n_cap) the measured run will use
     with sched.cache.lock:

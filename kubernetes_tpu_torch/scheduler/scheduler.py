@@ -60,8 +60,20 @@ reference's, method for method; what changed is the device half:
   consecutive trips or losses latch the device off
   (``scheduler_device_down``) and every batch takes the host path. The
   single-device branch of the ladder probes the card once
-  (``parallel/mesh._default_probe``); the reference's mesh shrink is
-  ROADMAP queue 1 item 6.
+  (``parallel/mesh._default_probe``); on a mesh the ladder probes every
+  entry and shrinks the mesh to the largest power-of-two prefix of the
+  survivors (re-sharding the snapshot), or pins to one survivor.
+* The mesh (the reference's ``use_mesh``): with ``mesh_devices`` of more
+  than one entry (None: every visible CUDA device when ``device`` is
+  CUDA) and ``cfg.use_mesh``, ``_bringup`` adopts ``parallel/mesh.Mesh``
+  and the encoder shards the snapshot's rows over it
+  (``SnapshotEncoder.set_sharding``); every wave and serial launch then
+  goes through ``parallel/sharded``'s node-sharded kernels, host
+  callbacks stay off, as in the reference. The victim selection, the
+  preemption what-if, the auditor's fetch and the what-if overlay read a
+  sharded snapshot through ``ops/encoding.gather_snapshot``, which
+  assembles the rows they need on the mesh's first device.
+  ``parallel/mesh.virtual_devices("cpu", 8)`` runs a mesh on the CPU.
 * ``host_callback_binds=True`` launches ``ops/wavelattice.make_wave_kernel_cb``
   under a ``ops/hostcallback`` ticket: the fast index payload's split-phase
   copy goes to ``wavepath.HostCallbackDelivery``, whose thread delivers it
@@ -76,9 +88,9 @@ reference's, method for method; what changed is the device half:
   or an injected source's ``replay_key()``, so the gym's replay of a
   serial wave redraws production's noise exactly.
 
-Not ported yet (construction raises ``NotImplementedError`` naming the
-ROADMAP queue 1 item): ``use_mesh`` over more than one device (item 6).
-The preemption what-if mask is ``ops/lattice.preempt_whatif`` on torch.
+Every setting of the reference's configuration runs (``_unported_settings``
+is empty). The preemption what-if mask is ``ops/lattice.preempt_whatif``
+on torch.
 
 The reference's design notes follow.
 
@@ -122,7 +134,7 @@ from ..runtime.consensus import DegradedWrites
 from ..controller.volume_scheduling import VolumeBinder
 from ..api.objects import Binding
 from ..ops.batch import encode_pod_batch
-from ..ops.encoding import PodBatch, SnapshotEncoder
+from ..ops.encoding import PodBatch, SnapshotEncoder, gather_snapshot, num_rows
 from ..ops.preemptlattice import preempt_select, validate_preempt_outputs
 from ..ops.templates import TemplateCache, build_pair_table
 from ..ops import hostcallback
@@ -410,11 +422,9 @@ class _FencedBindSurface:
 
 
 def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
-    """(setting, ROADMAP queue 1 item) pairs this port does not run yet."""
-    out = []
-    if cfg.use_mesh and device.type == "cuda" and torch.cuda.device_count() > 1:
-        out.append(("use_mesh over more than one device", 6))
-    return out
+    """(setting, ROADMAP queue 1 item) pairs this port does not run yet:
+    none since the mesh (item 6) was ported."""
+    return []
 
 
 class Scheduler:
@@ -424,7 +434,11 @@ class Scheduler:
     ``[P, m_c]`` float32 tensor in [0, 0.999) on the device; serial_noise:
     the serial kernel's, called as ``serial_noise(P, N)`` for a ``[P, N]``
     float32 tensor in [0, 1) (None: both drawn from a ``torch.Generator``
-    on the device seeded with ``seed``)."""
+    on the device seeded with ``seed``). mesh_devices: the devices
+    ``cfg.use_mesh`` shards the snapshot over (``parallel/mesh`` entries
+    or torch devices, the first being `device`); None means every
+    visible CUDA device when `device` is CUDA, and no mesh otherwise. A
+    mesh is adopted only with more than one entry."""
 
     def __init__(
         self,
@@ -434,10 +448,21 @@ class Scheduler:
         noise: Optional[Callable[[int, int], torch.Tensor]] = None,
         seed: int = 0,
         serial_noise: Optional[Callable[[int, int], torch.Tensor]] = None,
+        mesh_devices=None,
     ):
         self.cfg = config or KubeSchedulerConfiguration()
         self.cfg.validate()
         self.device = resolve_device(device)
+        if (
+            mesh_devices is None
+            and self.device.type == "cuda"
+            and torch.cuda.device_count() > 1
+        ):
+            mesh_devices = [
+                torch.device("cuda", i) for i in range(torch.cuda.device_count())
+            ]
+        self._mesh_devices = list(mesh_devices) if mesh_devices is not None else None
+        self._mesh = None  # set by _bringup() when the mesh is adopted
         unported = _unported_settings(self.cfg, self.device)
         if unported:
             raise NotImplementedError(
@@ -775,11 +800,10 @@ class Scheduler:
         self.promote()
 
     def _bringup(self) -> None:
-        """informers → WaitForCacheSync → presized encoder → pipeline
-        depth. After this the device snapshot mirrors the synced cluster;
-        nothing schedules yet. (The reference's mesh sharding is ROADMAP
-        queue 1 item 6; its XLA scatter-program warm-up has no counterpart
-        in eager torch.)"""
+        """informers → WaitForCacheSync → presized encoder → mesh
+        sharding → pipeline depth. After this the device snapshot mirrors
+        the synced cluster; nothing schedules yet. (The reference's XLA
+        scatter-program warm-up has no counterpart in eager torch.)"""
         self.informer_factory.start()
         self.informer_factory.wait_for_cache_sync()
         # presize device capacities from the synced node count so the
@@ -790,6 +814,24 @@ class Scheduler:
         )
         with self.cache.lock:
             self.cache.encoder.presize_for_cluster(max(n_nodes, 1))
+        # multi-device: shard the snapshot over the mesh (node axis),
+        # production wave kernel included
+        self._mesh = None
+        if (
+            self.cfg.use_device
+            and self.cfg.use_mesh
+            and self._mesh_devices is not None
+            and len(self._mesh_devices) > 1
+        ):
+            from ..parallel.mesh import make_mesh, replicated, snapshot_shardings
+
+            self._mesh = make_mesh(self._mesh_devices)
+            with self.cache.lock:
+                self.cache.encoder.set_sharding(
+                    snapshot_shardings(self._mesh), replicated(self._mesh)
+                )
+            self._follow_encoder_device()
+            metrics.set_gauge("scheduler_mesh_devices", float(self._mesh.size))
         if self.cfg.pipeline_depth == 0 and self.cfg.use_device:
             self._pipeline_depth = self._auto_pipeline_depth()
         metrics.set_gauge(
@@ -956,7 +998,7 @@ class Scheduler:
             snap = self.cache.encoder.flush()
             enc_cfg = self.cache.encoder.cfg
         m_cand = min(self.cfg.wave_m_cand_small, self._m_cand)
-        kern = make_wave_kernel(
+        kern = self._wave_kernel((
             enc_cfg.v_cap,
             m_cand,
             n_waves,
@@ -965,7 +1007,7 @@ class Scheduler:
             self._score_refresh or batch_has_hard,
             self._rtc_shape or DEFAULT_RTC_SHAPE,
             False,
-        )
+        ))
         noise = self._noise(small, min(m_cand, enc_cfg.n_cap))
         _new_snap, res, _copies = self._launch_wave_kernel(
             kern, snap, eb.batch, ptab, np.asarray(self._weights), noise
@@ -984,19 +1026,61 @@ class Scheduler:
                 self.cache.encoder.invalidate_device()
                 self.cache.encoder.flush()
         # the serial batch kernel (the use_wave=False device path)
-        kern2 = make_schedule_batch(
-            enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
-        )
+        kern2 = self._serial_kernel(enc_cfg.v_cap)
         with self.cache.lock:
             eb2 = encode_pod_batch(
                 self.cache.encoder, [warm_pod], pad_to=1
             )
             snap2 = self.cache.encoder.flush()
         self._run_serial_kernel(
-            kern2, snap2, eb2.batch,
-            self._serial_noise(1, int(snap2.valid.shape[0])),
+            kern2, snap2, eb2.batch, self._serial_noise(1, num_rows(snap2)),
         )
         metrics.inc(COUNTER_STANDBY_WARMUPS)
+
+    def _wave_kernel(self, variant: tuple):
+        """The wave kernel of `variant` (make_wave_kernel's arguments):
+        node-sharded over the mesh when one is adopted."""
+        if self._mesh is not None:
+            from ..parallel.sharded import make_sharded_wave_kernel
+
+            v_cap, m_cand, n_waves, hard_w, *rest = variant
+            return make_sharded_wave_kernel(v_cap, m_cand, n_waves, hard_w, self._mesh, *rest)
+        return make_wave_kernel(*variant)
+
+    def _serial_kernel(self, v_cap: int):
+        """The serial batch kernel: node-sharded over the mesh when one is
+        adopted (the reference partitions the same jit automatically)."""
+        if self._mesh is not None:
+            from ..parallel.sharded import make_sharded_schedule_batch
+
+            return make_sharded_schedule_batch(
+                v_cap, self._mesh, self.cfg.hard_pod_affinity_weight
+            )
+        return make_schedule_batch(v_cap, self.cfg.hard_pod_affinity_weight)
+
+    def _follow_encoder_device(self) -> None:
+        """Re-home the scheduler's device state (tie-noise Generator,
+        split-phase copy stream, template cache) on the encoder's device
+        when set_sharding moved it (a mesh whose first entry, or a shrink
+        survivor, is another card). No-op while it is unchanged, as on a
+        mesh of virtual devices of one card."""
+        dev = self.cache.encoder.device
+
+        def index(d):
+            if d.type == "cuda" and d.index is None:
+                return torch.cuda.current_device()
+            return d.index
+
+        if dev.type == self.device.type and index(dev) == index(self.device):
+            return
+        self.device = dev
+        seed = int(torch.randint(0, 2**62, (1,), generator=self._rng, device=self._rng.device))
+        self._rng = torch.Generator(device=dev).manual_seed(seed)
+        if dev.type == "cuda":
+            self._copy_stream = torch.cuda.Stream(device=dev)
+        with self.cache.lock:
+            self._tpl_cache = TemplateCache(self.cache.encoder)
+        self._pair_cache = None
 
     def _adopt_pending(self) -> Dict[str, int]:
         """Leader-adoption pass: the pending-bind reconciler's
@@ -1668,12 +1752,10 @@ class Scheduler:
                 row_names = list(self.cache.encoder.row_names)
                 launch_gen = self.cache._ext_generation
             trace.step("encoded+flushed")
-            kern = make_schedule_batch(
-                enc_cfg.v_cap, self.cfg.hard_pod_affinity_weight
-            )
+            kern = self._serial_kernel(enc_cfg.v_cap)
             rng_key = self._noise_key(self._serial_noise)
             noise = self._serial_noise(
-                int(eb.batch.valid.shape[0]), int(snap.valid.shape[0])
+                int(eb.batch.valid.shape[0]), num_rows(snap)
             )
             w_launch = np.asarray(self._weights)
             try:
@@ -1820,7 +1902,7 @@ class Scheduler:
                 with self.cache.lock:
                     snap2 = self.cache.encoder.flush()
                 whatif = preempt_whatif(
-                    snap2, eb.batch, eb.batch.priority
+                    gather_snapshot(snap2), eb.batch, eb.batch.priority
                 ).cpu().numpy()
             except Exception:
                 logger.exception("preempt what-if kernel failed")
@@ -2299,9 +2381,9 @@ class Scheduler:
             self._rtc_shape or DEFAULT_RTC_SHAPE,
             has_pinned,
         )
-        kern = make_wave_kernel(*variant)
+        kern = self._wave_kernel(variant)
         ticket = None
-        if self.cfg.host_callback_binds:
+        if self.cfg.host_callback_binds and self._mesh is None:
             # depth-infinity micro-waves: the launch posts its own fast
             # index payload to the delivery thread under this ticket — the
             # resolve consumes the delivery instead of issuing any sync
@@ -3037,12 +3119,12 @@ class Scheduler:
         metrics.set_gauge("scheduler_device_down", 1.0)
 
     def _handle_device_loss(self, exc: BaseException) -> None:
-        """Unrecoverable-by-retry device loss. Escalation ladder on one
-        card: ride out a transient blip with just the forced re-upload
-        when the card still answers a probe, or — the probe fails, or
+        """Unrecoverable-by-retry device loss. Escalation ladder: shrink
+        the mesh to the surviving devices (re-shard the snapshot, drop the
+        kernel caches keyed on the dead mesh), ride out a fully-transient
+        blip with just the forced re-upload, or — nothing usable, or
         losses keep repeating — latch the device path off and serve from
-        the host path. (The reference's middle rung, shrinking a mesh to
-        its surviving devices, is ROADMAP queue 1 item 6.)"""
+        the host path."""
         self._consecutive_device_loss += 1
         metrics.set_gauge(
             "scheduler_device_consecutive_loss",
@@ -3053,6 +3135,65 @@ class Scheduler:
                 "%d consecutive device-loss events without a successful "
                 "launch: abandoning the device path",
                 self._consecutive_device_loss,
+            )
+            self._set_device_down()
+            return
+        if self._mesh is not None:
+            from ..parallel import sharded
+            from ..parallel.mesh import (
+                largest_pow2_prefix,
+                make_mesh,
+                replicated,
+                single_device_shardings,
+                snapshot_shardings,
+                surviving_devices,
+            )
+
+            devices = list(self._mesh.devices)
+            survivors = surviving_devices(devices, probe=self._device_probe)
+            usable = largest_pow2_prefix(survivors)
+            if len(survivors) == len(devices):
+                # every device answers: a transient transfer failure — the
+                # invalidate already queued a full re-upload
+                logger.warning(
+                    "device loss looks transient (%d/%d devices respond): "
+                    "keeping the mesh, snapshot re-uploads",
+                    len(survivors), len(devices),
+                )
+                return
+            if usable:
+                # the kernel caches hold kernels built for the DEAD mesh:
+                # clear them before any launch against the new one
+                sharded.make_sharded_wave_kernel.cache_clear()
+                sharded.make_sharded_schedule_batch.cache_clear()
+                new_mesh = make_mesh(usable) if len(usable) > 1 else None
+                with self.cache.lock:
+                    if new_mesh is not None:
+                        self.cache.encoder.set_sharding(
+                            snapshot_shardings(new_mesh),
+                            replicated(new_mesh),
+                        )
+                    else:
+                        # one survivor: pin uploads to IT — an unpinned
+                        # encoder uploads to its own device, which may be
+                        # the dead one
+                        self.cache.encoder.set_sharding(
+                            *single_device_shardings(usable[0])
+                        )
+                self._mesh = new_mesh
+                self._pair_cache = None
+                self._follow_encoder_device()
+                metrics.inc("scheduler_mesh_shrinks_total")
+                metrics.set_gauge(
+                    "scheduler_mesh_devices", float(max(len(usable), 1))
+                )
+                logger.error(
+                    "mesh shrunk to %d surviving device(s) after device "
+                    "loss (%s); snapshot re-sharded", len(usable), exc,
+                )
+                return
+            logger.error(
+                "no surviving devices after device loss (%s): host path", exc
             )
             self._set_device_down()
             return
@@ -3072,7 +3213,8 @@ class Scheduler:
     @staticmethod
     def _device_probe(device) -> bool:
         """One tiny put/get round-trip (injectable via monkeypatching for
-        chaos tests; device=None probes the current CUDA device)."""
+        chaos tests, which may declare mesh entries dead by their id;
+        device=None probes the current CUDA device)."""
         from ..parallel.mesh import _default_probe
 
         return _default_probe(device)
@@ -3088,7 +3230,7 @@ class Scheduler:
         differential tests' seeded-disagreement corruption (mirrors
         _run_serial_kernel)."""
         res = preempt_select(
-            snap, batch,
+            gather_snapshot(snap), batch,
             torch.as_tensor(np.asarray(prios, np.int32), device=self.device),
         )
         return {
@@ -3227,6 +3369,7 @@ class Scheduler:
                 # scatter cannot erase un-replayed device commits
                 assert not self._pending
                 snap = self.cache.encoder.flush()
+            snap = gather_snapshot(snap)
             mask = preempt_whatif(
                 snap, eb.batch.tpl,
                 torch.as_tensor(prios, device=snap.valid.device),

@@ -26,8 +26,9 @@ ptab, weights, noise)`` returns ``(new_snap, res, copies)`` and
 ``(res, chosen, score, bulk)``; the tie noise is a tensor where the
 reference passes a PRNG key. ``corrupt_device_rows`` reads one field of
 the pinned generation, mutates the rows on the host and installs the
-result as a new device tensor through ``swap_live_snapshot``; the mesh
-placement of the reference's version waits for ROADMAP queue 1 item 6.
+result as a new device tensor through ``swap_live_snapshot``, keeping a
+sharded generation's placement (the new field split into fresh blocks on
+their entries' devices), as the reference's version keeps its sharding.
 """
 
 from __future__ import annotations
@@ -38,6 +39,7 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from ..ops.encoding import ShardedSnapshot, gather_snapshot
 from ..parallel.sharded import DeviceLossError
 
 __all__ = [
@@ -65,7 +67,7 @@ def corrupt_device_rows(
         dev = lease.snap
         if dev is None:
             raise RuntimeError("no device snapshot to corrupt (flush first)")
-        src = getattr(dev, field)
+        src = getattr(gather_snapshot(dev), field)
         arr = np.array(src.cpu().numpy())
         idx = list(rows)
         if mutate is None:
@@ -75,6 +77,9 @@ def corrupt_device_rows(
                 arr[idx] = arr[idx] + np.asarray(7919, arr.dtype)
         else:
             arr[idx] = mutate(arr[idx])
+        if isinstance(dev, ShardedSnapshot):
+            encoder.swap_live_snapshot(dev.with_field(field, arr))
+            return
         new = torch.tensor(arr, device=src.device)
         encoder.swap_live_snapshot(dev._replace(**{field: new}))
 

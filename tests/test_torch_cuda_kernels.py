@@ -48,7 +48,9 @@ def _case(seed, tpl, n, r):
      # the tiling's edges: N % 4 = 1, 2, 3 (a partial last block); N < 4;
      # TPL off the 4-template tile; TPL > 256 over many tiles; empty
      (4, 8193, 6), (5, 8194, 6), (17, 8195, 6), (3, 2, 6), (2, 3, 7),
-     (257, 4099, 6), (33, 0, 6), (0, 64, 6)],
+     (257, 4099, 6), (33, 0, 6), (0, 64, 6),
+     # one shard's rows of the main path's 8192 over a mesh of 4 and 8
+     (4, 2048, 6), (4, 1024, 6)],
 )
 def test_fit_mask_kernel_matches_plain(tpl, n, r):
     if not torch.cuda.is_available():
@@ -309,6 +311,60 @@ def test_preempt_select_on_the_card_matches_its_cpu_run():
         g = getattr(got, f)
         assert g.is_cuda and torch.equal(g.cpu(), getattr(want, f)), f
     assert len(set(want.node.tolist()) - {-1}) >= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_wave_and_serial_kernels_on_the_card_match_one_device(shards):
+    """The node-sharded kernels over virtual entries of the card: every
+    output and the committed snapshot equal the single-device kernels' on
+    the card, and the wave kernel launches K1 once per shard."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from kubernetes_tpu_torch.ops.batch import encode_pod_batch
+    from kubernetes_tpu_torch.ops.encoding import gather_snapshot
+    from kubernetes_tpu_torch.ops.lattice import make_schedule_batch, weights_for_policy
+    from kubernetes_tpu_torch.ops.templates import TemplateCache, build_pair_table
+    from kubernetes_tpu_torch.ops.wavelattice import make_wave_kernel
+    from kubernetes_tpu_torch.parallel import make_mesh, shard_snapshot
+    from kubernetes_tpu_torch.parallel.mesh import virtual_devices
+    from kubernetes_tpu_torch.parallel.sharded import (
+        make_sharded_schedule_batch,
+        make_sharded_wave_kernel,
+    )
+
+    dev = "cuda"
+    enc, pods = _seeded_cluster(2)
+    eb = TemplateCache(enc).encode(pods, pad_to=64)
+    pt, _ = build_pair_table(enc, eb.tpl_np, eb.num_templates)
+    batch = encode_pod_batch(enc, pods[:16], pad_to=16).batch
+    snap = _to(enc.flush(), dev)  # after the encodes: they may intern
+    tb = type(eb.batch)(_to(eb.batch.tpl, dev), *(t.to(dev) for t in eb.batch[1:]))
+    pt, batch = _to(pt, dev), _to(batch, dev)
+    mesh = make_mesh(virtual_devices(dev, shards))
+    weights = torch.tensor(weights_for_policy("default")).to(dev)
+    n = snap.valid.shape[0]
+    noise = (torch.rand((64, min(32, n)), generator=torch.Generator().manual_seed(1)) * 0.999).to(dev)
+    # the wave kernel commits in place: the single-device run takes a clone
+    one = type(snap)(*(t.clone() for t in snap))
+    s1, r1 = make_wave_kernel(enc.cfg.v_cap, 32, 4).with_noise(one, tb, pt, weights, noise)
+    before = fit_mask.launches
+    s2, r2 = make_sharded_wave_kernel(enc.cfg.v_cap, 32, 4, 1.0, mesh).with_noise(
+        shard_snapshot(snap, mesh), tb, pt, weights, noise
+    )
+    assert fit_mask.launches == before + (shards if dev == "cuda" else 0)
+    for f in ("chosen", "placed", "deferred", "feasible_count", "score"):
+        assert torch.equal(getattr(r1, f), getattr(r2, f)), f
+    assert int(r1.placed.sum()) >= 16
+    g = gather_snapshot(s2)
+    for f in s1._fields:
+        assert torch.equal(getattr(s1, f), getattr(g, f)), f
+    noise = torch.rand((16, n), generator=torch.Generator().manual_seed(2)).to(dev)
+    a = make_schedule_batch(enc.cfg.v_cap)(snap, batch, weights, noise)
+    b = make_sharded_schedule_batch(enc.cfg.v_cap, mesh)(shard_snapshot(snap, mesh), batch, weights, noise)
+    for f in ("chosen", "score", "feasible_count"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert torch.equal(a.resolvable.cpu(), b.resolvable.cpu())
 
 
 # -- the data-plane defense on the card ------------------------------------

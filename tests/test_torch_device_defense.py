@@ -11,9 +11,9 @@ injector (testing/device_faults.py).
     port's APIServer with the bind ledger of ``_LedgerStore`` takes their
     place, and nodes are created as API objects. The reference's two mesh
     scenarios (``test_partial_device_loss_shrinks_mesh_and_reshards``,
-    ``test_single_survivor_shrink_pins_uploads_to_survivor``) wait for the
-    multi-device slice (ROADMAP queue 1 item 6). The two reference tests
-    marked slow keep the mark.
+    ``test_single_survivor_shrink_pins_uploads_to_survivor``) are in
+    tests/test_torch_mesh_defense.py. The two reference tests marked slow
+    keep the mark.
 (b) Parity with the reference on the same inputs, all exact:
     ``fetch_device_rows`` field by field; ``audit_once()`` reports after
     the same ``corrupt_device_rows`` (or master drift) on both encoders;

@@ -56,6 +56,7 @@ import torch
 
 from kubernetes_tpu.client.apiserver import APIServer as RefAPIServer
 from kubernetes_tpu.perf.workloads import WorkloadConfig as RefWorkloadConfig
+from kubernetes_tpu.parallel import sharded as ref_sharded_mod
 from kubernetes_tpu.perf.workloads import build_workload as ref_build_workload
 from kubernetes_tpu.scheduler import scheduler as ref_sched_mod
 from kubernetes_tpu.scheduler.cache.nodeinfo import Snapshot
@@ -80,6 +81,7 @@ from kubernetes_tpu_torch.api.objects import (
 from kubernetes_tpu_torch.api.selectors import LabelSelector
 from kubernetes_tpu_torch.client.apiserver import APIServer
 from kubernetes_tpu_torch.ops.lattice import GUARD_ROW_RANGE, KernelGuardTrip
+from kubernetes_tpu_torch.parallel import sharded as port_sharded_mod
 from kubernetes_tpu_torch.perf import harness
 from kubernetes_tpu_torch.perf.harness import default_config, run_benchmark
 from kubernetes_tpu_torch.perf.workloads import WorkloadConfig, build_workload
@@ -231,10 +233,11 @@ def test_scheduler_matches_reference_batch_by_batch(name, batch, m_cand, monkeyp
     batch_parity(name, batch, m_cand, monkeypatch)
 
 
-def batch_parity(name, batch, m_cand, monkeypatch, **settings):
+def batch_parity(name, batch, m_cand, monkeypatch, mesh_devices=None, **settings):
     """The body of (a) for one workload and bucket configuration, both
-    Schedulers also given `settings`; returns the two (stopped)
-    Schedulers."""
+    Schedulers also given `settings` (the port's also `mesh_devices`; with
+    use_mesh the reference shards over its 8 virtual devices); returns the
+    two (stopped) Schedulers."""
     metrics.reset()
     (ref_server, ref_pods), (server, pods), n_init = _parity_servers(name)
     common = dict(
@@ -259,6 +262,15 @@ def batch_parity(name, batch, m_cand, monkeypatch, **settings):
         return real_make(*variant)
 
     monkeypatch.setattr(port_sched_mod, "make_wave_kernel", make_rec)
+    # on a mesh both sides launch the node-sharded kernel instead
+    for mod, rec in ((ref_sharded_mod, ref_variants), (port_sharded_mod, port_variants)):
+        real_sharded = mod.make_sharded_wave_kernel
+
+        def sharded_rec(*variant, _real=real_sharded, _rec=rec):
+            _rec.append((variant[1], variant[2]))
+            return _real(*variant)
+
+        monkeypatch.setattr(mod, "make_sharded_wave_kernel", sharded_rec)
     keys = collections.deque()
     ref = ref_sched_mod.Scheduler(
         ref_server, RefConfig(**common, **_profiles("kubernetes_tpu", name))
@@ -273,7 +285,7 @@ def batch_parity(name, batch, m_cand, monkeypatch, **settings):
     port = Scheduler(
         server,
         KubeSchedulerConfiguration(**common, **_profiles("kubernetes_tpu_torch", name)),
-        device="cpu", noise=ref_noise,
+        device="cpu", noise=ref_noise, mesh_devices=mesh_devices,
     )
     ref_rec = _Recorder(ref, True, collections.deque())
     port_rec = _Recorder(port, False)
@@ -979,16 +991,17 @@ def test_harness_fails_a_run_whose_device_latched_down(entry, monkeypatch):
     ],
 )
 def test_unported_settings_raise_with_their_roadmap_item(override, item, monkeypatch):
-    """Only a mesh over more than one card is refused. The check is asked
-    directly, with two cards faked, so it runs without a card."""
+    """The last refused setting, a mesh over more than one card (ROADMAP
+    queue 1 `item`), is ported: nothing is refused any more, with two
+    cards faked (the check is asked directly, so it runs without a card)
+    or on the CPU."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    unported = port_sched_mod._unported_settings(
-        KubeSchedulerConfiguration(**override), torch.device("cuda")
-    )
-    assert [i for _what, i in unported] == [item]
-    assert port_sched_mod._unported_settings(
-        KubeSchedulerConfiguration(**override), torch.device("cpu")
-    ) == []
+    for dev in (torch.device("cuda"), torch.device("cpu")):
+        unported = port_sched_mod._unported_settings(
+            KubeSchedulerConfiguration(**override), dev
+        )
+        assert item not in [i for _what, i in unported]
+        assert unported == []
 
 
 @pytest.mark.parametrize(
@@ -1144,6 +1157,13 @@ def test_serial_scheduler_matches_reference_batch_by_batch(name):
     port given the reference's per-pod tie noise: every serial kernel
     result (chosen, feasible_count, resolvable exact; score within the
     stated tolerance), the bound sets and the bindings are equal."""
+    serial_parity(name)
+
+
+def serial_parity(name, mesh_devices=None, **settings):
+    """The body of the serial batch parity for one workload, both
+    Schedulers also given `settings` (the port's also `mesh_devices`);
+    returns the two (stopped) Schedulers."""
     from test_torch_serial_lattice import assert_serial_parity, reference_noise
 
     metrics.reset()
@@ -1152,6 +1172,7 @@ def test_serial_scheduler_matches_reference_batch_by_batch(name):
         use_wave=False, device_batch_size=16, antientropy_period_s=0,
         use_mesh=False, device_batch_window=0.0,
     )
+    common.update(settings)
     keys = collections.deque()
     ref = ref_sched_mod.Scheduler(
         ref_server, RefConfig(**common, **_profiles("kubernetes_tpu", name))
@@ -1165,7 +1186,7 @@ def test_serial_scheduler_matches_reference_batch_by_batch(name):
     port = Scheduler(
         server,
         KubeSchedulerConfiguration(**common, **_profiles("kubernetes_tpu_torch", name)),
-        device="cpu", serial_noise=serial_noise,
+        device="cpu", serial_noise=serial_noise, mesh_devices=mesh_devices,
     )
     ref_rec = _SerialRecorder(ref, True, keys)
     port_rec = _SerialRecorder(port, False)
@@ -1216,6 +1237,7 @@ def test_serial_scheduler_matches_reference_batch_by_batch(name):
     finally:
         ref.stop()
         port.stop()
+    return ref, port
 
 
 def _preempt_cluster(o, server, n_nodes, n_hi):
