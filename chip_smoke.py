@@ -65,6 +65,25 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    scheduler_mesh_devices 2) and only entry 1 answering (the encoder
    pinned to entry 1). Copies between two cards are not exercised: the
    card is one.
+4d. [dist]: the mesh over processes (parallel/distributed.py). Two
+   worker processes (this script with --dist-worker) on cuda:0 join a
+   gloo group through a file store (GLOO_SOCKET_IFNAME=lo), each adding 2
+   virtual entries: a global mesh of 4 entries, 2,048 rows a shard of
+   n_cap 8192. Each builds SchedulingPodAffinity/5000's cluster from
+   --seed (nodes, initial pods placed through the wave path) and runs one
+   4096-pod wave batch (512 candidates) and one 64-pod serial batch, the
+   tie noise drawn from generators seeded alike, through the set_sharding
+   upload; every merge and row read is a collective staged through host
+   memory. Each worker's outputs (chosen, placed, deferred,
+   feasible_count, score; the serial chosen, score, feasible_count), its
+   local mask parts and its committed local blocks must equal this
+   process's single-device run of the same batches exactly; K1 on each
+   local shard equals its plain version and launches once a local shard.
+   Then the same batches in one worker under a 1-rank NCCL group (one
+   card admits no second NCCL rank), equal too. Each spawn is killed and
+   fails the run past 150 s. Prints each worker's wave wall p50 of 5,
+   collectives and bytes a batch and the serial pod step beside [mesh]'s
+   one-process figures.
 5. The system's own entry point: perf/harness.run_benchmark of
    SchedulingPodAffinity/5000 through the port's APIServer, informers,
    queue and Scheduler (split-phase readback, assume and bind), after one
@@ -211,7 +230,7 @@ record the port logs; a fault phase fails on any ERROR it did not cause
 ([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 4c, 5, 6, 7, 8, 9, 11, 12-16c, 16d and 16e) and read just after. The last lines are the
+2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 11, 12-16c, 16d and 16e) and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
@@ -224,7 +243,8 @@ on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
 process entry (``launches_gym``, ``launches_tuner``: the serial lattice,
 0; ``launches_cmd``), the kubeadm control plane and its promoted standby
 (``launches_kubeadm``, ``launches_failover``), the burst on the 4-shard
-mesh (``launches_mesh``),
+mesh (``launches_mesh``), the two [dist] workers' wave batches
+(``launches_dist``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -1683,8 +1703,321 @@ def phase_mesh(mp, device, card: str, errors: ErrorLog) -> dict:
     return {
         "k1": k1_burst, "k2": k2_burst, "pods_per_s": res.throughput_pods_per_s,
         "wall_single_ms": w1, "wall_sharded_ms": w4, "k1_batch": k1_batch,
+        "serial_single_s": sw1, "serial_sharded_s": sw4,
         "launches_single": prof1.get("launches"), "launches_sharded": prof4.get("launches"),
     }
+
+
+DIST_WORKERS = 2  # processes of the gloo group, all on the one card
+DIST_ENTRIES = 2  # virtual mesh entries a process
+DIST_TIMEOUT_S = 150  # each spawn of workers, killed past it
+DIST_GROUP_TIMEOUT_S = 60.0  # a collective waiting on a dead peer raises
+DIST_RESULT = "[dist result] "
+DIST_WAVE_RUNS = 5
+WAVE_FIELDS = ("chosen", "placed", "deferred", "feasible_count", "score")
+SERIAL_FIELDS = ("chosen", "score", "feasible_count")
+
+
+def dist_case(device, seed: int, workload: str, wave_pods: int, serial_pods: int) -> dict:
+    """[dist]'s inputs, built alike from `seed` in the parent and in every
+    worker (the SPMD contract: identical host state): the workload's
+    nodes encoded on `device` and its initial pods placed through the
+    wave path, as the main path starts; one `wave_pods` wave batch
+    prepared at full width and one `serial_pods` serial batch; each
+    batch's tie noise drawn from a generator on `device` seeded from
+    `seed`."""
+    from kubernetes_tpu_torch.ops.batch import encode_pod_batch
+    from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
+    from kubernetes_tpu_torch.ops.lattice import weights_for_policy
+    from kubernetes_tpu_torch.ops.templates import TemplateCache
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.scheduler.wavepath import WavePathConfig, prepare_batch, schedule_pods
+
+    wl = WORKLOADS[workload]
+    nodes, init_pods, factory = build_workload(wl)
+    enc = SnapshotEncoder(EncodingConfig.for_cluster(wl.num_nodes), device=device)
+    for n in nodes:
+        enc.add_node(n)
+    cache = TemplateCache(enc)
+    weights = torch.tensor(weights_for_policy("default"), device=device)
+    cfg = WavePathConfig()
+    init = schedule_pods(enc, cache, init_pods, weights,
+                         torch.Generator(device=device).manual_seed(seed), cfg)
+    if init.unscheduled or init.fallback or len(init.placed) != len(init_pods):
+        raise AssertionError(f"[dist] init pods: {len(init.placed)}/{len(init_pods)} placed")
+    prep = prepare_batch(enc, cache, [factory(300000 + i) for i in range(wave_pods)], cfg)
+    sb = encode_pod_batch(enc, [factory(400000 + i) for i in range(serial_pods)],
+                          pad_to=serial_pods)
+    snap = enc.flush()
+    n = snap.valid.shape[0]
+    k = prep.kern
+    g = torch.Generator(device=device).manual_seed(seed + 1)
+    noise = torch.rand((prep.eb.batch.pod_tpl.shape[0], min(k.m_cand, n)), generator=g,
+                       device=device) * 0.999
+    snoise = torch.rand((serial_pods, n), generator=g, device=device)
+    return {
+        "enc": enc, "prep": prep, "sb": sb, "weights": weights, "noise": noise,
+        "snoise": snoise, "n": n,
+        "variant": (k.v_cap, k.m_cand, k.n_waves, k.hard_pod_affinity_weight, True,
+                    k.score_refresh, k.rtc_shape, k.has_pinned),
+    }
+
+
+def clone_sharded(snap):
+    """A ShardedSnapshot of clones of this process's blocks."""
+    from kubernetes_tpu_torch.ops.encoding import DeviceSnapshot, RemoteBlock, ShardedSnapshot
+
+    return ShardedSnapshot(snap.mesh, [
+        b if isinstance(b, RemoteBlock) else DeviceSnapshot(*(t.clone() for t in b))
+        for b in snap.blocks
+    ])
+
+
+def dist_worker_main(spec: dict) -> int:
+    """One process of [dist] (this script with --dist-worker SPEC): joins
+    the group (spec's backend, file store, world and rank), builds
+    dist_case, adopts a mesh of spec["entries"] virtual entries of its
+    device per process through set_sharding, checks K1 on each of its
+    shards against the plain version, then runs the wave batch (counted:
+    K1 launches, collectives, bytes; then timed DIST_WAVE_RUNS times,
+    each from a clone of the flushed blocks) and the serial batch.
+    Saves its outputs and committed blocks to spec["out"] and prints a
+    summary after DIST_RESULT."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.parallel import distributed
+    from kubernetes_tpu_torch.parallel.mesh import (
+        make_mesh, replicated, snapshot_shardings, virtual_devices,
+    )
+    from kubernetes_tpu_torch.parallel.sharded import (
+        make_sharded_schedule_batch, make_sharded_wave_kernel,
+    )
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    device = torch.device(spec["device"])
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.set_device(device)
+        fit_kernels.build_all()  # built by the parent: loads the libraries
+    distributed.initialize(spec["init"], spec["world"], spec["rank"], spec["backend"],
+                           timeout_s=DIST_GROUP_TIMEOUT_S)
+    c = dist_case(device, spec["seed"], spec["workload"], spec["wave_pods"], spec["serial_pods"])
+    mesh = make_mesh(virtual_devices(device, spec["entries"]))
+    enc, prep = c["enc"], c["prep"]
+    enc.set_sharding(snapshot_shardings(mesh), replicated(mesh))
+    base = enc.flush()
+    req = prep.eb.batch.tpl.req.contiguous()
+    for s, blk in base.local:  # comparison launches, before the count
+        free = (blk.allocatable - blk.requested).contiguous()
+        if not torch.equal(fit_kernels.fit_mask(req, free), fit_kernels.fit_mask_plain(req, free)):
+            raise AssertionError(f"[dist] K1 on shard {s} differs from its plain version")
+    v = c["variant"]
+    kern = make_sharded_wave_kernel(*v[:4], mesh, *v[4:])
+    skern = make_sharded_schedule_batch(v[0], mesh)
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    def wave():
+        return kern.with_noise(clone_sharded(base), prep.eb.batch, prep.ptab, c["weights"],
+                               c["noise"])
+
+    def serial():
+        return skern(base, c["sb"].batch, c["weights"], c["snoise"])
+
+    def counted(fn):
+        sync()
+        c0 = metrics.counter("distributed_collectives_total")
+        b0 = metrics.counter("distributed_bytes_total")
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return (out, time.perf_counter() - t0,
+                metrics.counter("distributed_collectives_total") - c0,
+                metrics.counter("distributed_bytes_total") - b0)
+
+    zero_k(fit_kernels)
+    (snap, res), _t, w_coll, w_bytes = counted(wave)
+    k1, k2 = count_k(fit_kernels)
+    walls = [counted(wave)[1] * 1e3 for _ in range(DIST_WAVE_RUNS)]
+    sres, s_wall, s_coll, s_bytes = counted(serial)
+    torch.save({
+        "wave": {f: getattr(res, f).cpu() for f in WAVE_FIELDS},
+        "wave_masks": {f: {s: p.cpu() for s, p in enumerate(getattr(res, f).parts) if p is not None}
+                       for f in ("resolvable_tpl", "feasible_tpl")},
+        "blocks": {s: {f: t.cpu() for f, t in zip(blk._fields, blk)} for s, blk in snap.local},
+        "serial": {f: getattr(sres, f).cpu() for f in SERIAL_FIELDS},
+        "serial_resolvable": {s: p.cpu() for s, p in enumerate(sres.resolvable.parts)
+                              if p is not None},
+    }, spec["out"])
+    print(DIST_RESULT + json.dumps({
+        "rank": spec["rank"], "backend": spec["backend"], "mesh": repr(mesh),
+        "local": [e.id for e in mesh.local], "k1": k1, "k2": k2,
+        "wave_walls_ms": walls, "wave_p50_ms": sorted(walls)[len(walls) // 2],
+        "wave_collectives": w_coll, "wave_bytes": w_bytes, "serial_s": s_wall,
+        "serial_collectives": s_coll, "serial_bytes": s_bytes,
+        "placed": int(res.placed.sum()),
+    }), flush=True)
+    distributed.shutdown()
+    return 0
+
+
+def spawn_dist(world: int, backend: str, tmp: Path, tag: str, common: dict) -> list:
+    """Starts `world` workers together (this script with --dist-worker),
+    each in a session of its own, with gloo on the loopback interface;
+    waits for all of them up to DIST_TIMEOUT_S in all, then kills every
+    one still running. Fails unless each exits 0 with its result line.
+    Returns [(summary, outputs)] in rank order."""
+    import os
+    import signal
+
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")
+    init = "file://" + str(tmp / f"{tag}.store")
+    procs = []
+    for rank in range(world):
+        spec = dict(common, rank=rank, world=world, backend=backend, init=init,
+                    out=str(tmp / f"{tag}{rank}.pt"))
+        log_f = open(tmp / f"{tag}{rank}.log", "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dist-worker", json.dumps(spec)],
+            stdout=log_f, stderr=subprocess.STDOUT, env=env, start_new_session=True,
+        ), log_f))
+    deadline = time.monotonic() + DIST_TIMEOUT_S
+    rcs = []
+    try:
+        for p, _f in procs:
+            try:
+                rcs.append(p.wait(timeout=max(0.1, deadline - time.monotonic())))
+            except subprocess.TimeoutExpired:
+                rcs.append(None)
+    finally:
+        for p, f in procs:
+            try:
+                os.killpg(p.pid, signal.SIGKILL)
+            except ProcessLookupError:
+                pass
+            p.wait()
+            f.close()
+    out = []
+    for rank, rc in enumerate(rcs):
+        text = (tmp / f"{tag}{rank}.log").read_text()
+        lines = [x for x in text.splitlines() if x.startswith(DIST_RESULT)]
+        if rc != 0 or not lines:
+            why = "killed after the timeout" if rc is None else f"exit code {rc}"
+            raise AssertionError(f"[dist] {backend} worker {rank} of {world}: {why}\n{text[-3000:]}")
+        out.append((json.loads(lines[0][len(DIST_RESULT):]),
+                    torch.load(tmp / f"{tag}{rank}.pt", map_location="cpu")))
+    return out
+
+
+def check_dist(w: dict, s: dict, r1, s1, a, rows: int, k1_each: int, what: str) -> None:
+    """A worker's outputs against the parent's single-device runs: the
+    wave batch's outputs (r1), its local mask parts and committed blocks
+    (s1's rows), the serial batch's outputs (a); all exactly. K1 must
+    have launched `k1_each` times a local shard in the counted batch."""
+    from kubernetes_tpu_torch.ops.encoding import _GLOBAL_FIELDS
+
+    for f in WAVE_FIELDS:
+        if not torch.equal(getattr(r1, f).cpu(), w["wave"][f]):
+            raise AssertionError(f"[dist] {what}: wave {f} differs from one device")
+    for f, parts in w["wave_masks"].items():
+        full = getattr(r1, f).cpu()
+        for sh, p in parts.items():
+            if not torch.equal(full[:, sh * rows:(sh + 1) * rows], p):
+                raise AssertionError(f"[dist] {what}: wave {f} part {sh} differs")
+    for sh, blk in w["blocks"].items():
+        for f, t in blk.items():
+            want = getattr(s1, f).cpu()
+            if f not in _GLOBAL_FIELDS:
+                want = want[sh * rows:(sh + 1) * rows]
+            if not torch.equal(want, t):
+                raise AssertionError(f"[dist] {what}: committed {f} of block {sh} differs")
+    for f in SERIAL_FIELDS:
+        if not torch.equal(getattr(a, f).cpu(), w["serial"][f]):
+            raise AssertionError(f"[dist] {what}: serial {f} differs from one device")
+    for sh, p in w["serial_resolvable"].items():
+        if not torch.equal(a.resolvable.cpu()[:, sh * rows:(sh + 1) * rows], p):
+            raise AssertionError(f"[dist] {what}: serial resolvable part {sh} differs")
+    if len(w["blocks"]) != DIST_ENTRIES or s["k1"] != k1_each * DIST_ENTRIES:
+        raise AssertionError(f"[dist] {what}: {len(w['blocks'])} blocks, K1 launched "
+                             f"{s['k1']} times for {DIST_ENTRIES} local shards")
+
+
+def phase_dist(device, card: str, seed: int, mesh_figs: dict,
+               workload: str = "SchedulingPodAffinity/5000", wave_pods: int = 4096,
+               serial_pods: int = 64, one_rank_backend: str = "nccl") -> dict:
+    """[dist]: the mesh over processes. DIST_WORKERS processes on the card
+    form a gloo group through a file store, each adding DIST_ENTRIES
+    virtual entries (4 entries of 2,048 rows at n_cap 8192); each builds
+    dist_case from the same seed and runs the wave batch (4096 pods, 512
+    candidates) and the serial batch (64 pods) over the global mesh, the
+    merges and row reads going through the group's collectives. Each
+    process's outputs and committed local blocks must equal this
+    process's single-device run of the same batches exactly; K1 launches
+    once a local shard and equals its plain version on each. Then the
+    same batches in one process under a 1-rank NCCL group (one card
+    admits no second NCCL rank): equal too. Prints each worker's wave
+    wall p50 of DIST_WAVE_RUNS, collectives and bytes a batch beside
+    [mesh]'s one-process figures."""
+    import shutil
+    import tempfile
+
+    from kubernetes_tpu_torch.ops.lattice import make_schedule_batch
+    from kubernetes_tpu_torch.ops.wavelattice import make_wave_kernel
+
+    t_phase = time.perf_counter()
+    c = dist_case(device, seed, workload, wave_pods, serial_pods)
+    snap = c["enc"].flush()
+    s1, r1 = make_wave_kernel(*c["variant"]).with_noise(
+        type(snap)(*(t.clone() for t in snap)), c["prep"].eb.batch, c["prep"].ptab,
+        c["weights"], c["noise"])
+    a = make_schedule_batch(c["variant"][0])(snap, c["sb"].batch, c["weights"], c["snoise"])
+    rows = c["n"] // (DIST_WORKERS * DIST_ENTRIES)
+    k1_each = 1 if device.type == "cuda" else 0  # the CPU runs K1's plain version
+    common = {"device": str(device), "seed": seed, "workload": workload, "wave_pods": wave_pods,
+              "serial_pods": serial_pods, "entries": DIST_ENTRIES}
+    tmp = Path(tempfile.mkdtemp(prefix="dist-smoke-"))
+    try:
+        t0 = time.perf_counter()
+        gloo = spawn_dist(DIST_WORKERS, "gloo", tmp, "gloo", common)
+        gloo_s = time.perf_counter() - t0
+        for s, w in gloo:
+            check_dist(w, s, r1, s1, a, rows, k1_each, f"gloo process {s['rank']}")
+        t0 = time.perf_counter()
+        ((one, w1),) = spawn_dist(1, one_rank_backend, tmp, "one", common)
+        one_s = time.perf_counter() - t0
+        check_dist(w1, one, r1, s1, a, c["n"] // DIST_ENTRIES, k1_each,
+                   f"1-rank {one_rank_backend}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    for s, _w in gloo:
+        log(f"[dist] gloo process {s['rank']} of {DIST_WORKERS} on {device} ({DIST_ENTRIES} "
+            f"entries {s['local']} of {s['mesh']}, {rows} rows a shard, n_cap {c['n']}): the "
+            f"{wave_pods}-pod wave batch ({s['placed']} placed) and the {serial_pods}-pod serial "
+            f"batch equal one device exactly (outputs, local mask parts, committed local "
+            f"blocks); K1 {s['k1']} launches (one a local shard), each local shard's mask "
+            f"equal to its plain version; wave wall p50 of {DIST_WAVE_RUNS} "
+            f"{s['wave_p50_ms']:.2f} ms (runs {_fmt([x / 1e3 for x in s['wave_walls_ms']])} "
+            f"ms), {s['wave_collectives']:.0f} collectives and {s['wave_bytes']:.0f} bytes "
+            f"a wave batch; serial {s['serial_s']:.3f} s = "
+            f"{s['serial_s'] / serial_pods * 1e3:.2f} ms a pod step, "
+            f"{s['serial_collectives']:.0f} collectives and {s['serial_bytes']:.0f} bytes; "
+            f"card {card}")
+    log(f"[dist] beside [mesh] (one process, {MESH_SHARDS} entries, no collectives): wave "
+        f"wall single {mesh_figs.get('wall_single_ms', float('nan')):.2f} ms, sharded "
+        f"{mesh_figs.get('wall_sharded_ms', float('nan')):.2f} ms; serial single "
+        f"{mesh_figs.get('serial_single_s', float('nan')):.3f} s, sharded "
+        f"{mesh_figs.get('serial_sharded_s', float('nan')):.3f} s; card {card}")
+    log(f"[dist] 1-rank {one_rank_backend} group ({DIST_ENTRIES} entries): wave and serial "
+        f"batches equal one device; wave wall p50 {one['wave_p50_ms']:.2f} ms, "
+        f"{one['wave_collectives']:.0f} collectives and {one['wave_bytes']:.0f} bytes a wave "
+        f"batch; serial {one['serial_s']:.3f} s, {one['serial_collectives']:.0f} "
+        f"collectives; K1 {one['k1']} launches; card {card}")
+    log(f"[dist] workers: gloo pair {gloo_s:.1f} s, 1-rank {one_rank_backend} {one_s:.1f} s; "
+        f"[dist] {time.perf_counter() - t_phase:.1f} s in all; card {card}")
+    return {"k1": sum(s["k1"] for s, _w in gloo), "k2": sum(s["k2"] for s, _w in gloo),
+            "wave_p50_ms": [s["wave_p50_ms"] for s, _w in gloo],
+            "one_rank_k1": one["k1"]}
 
 
 def phase_hostcb(device, card: str, errors: ErrorLog) -> dict:
@@ -3221,7 +3554,11 @@ def main(argv=None) -> int:
                     help=argparse.SUPPRESS)  # the child of run_control_plane
     ap.add_argument("--standby", action="store_true",
                     help=argparse.SUPPRESS)  # the child of StandbyProcess
+    ap.add_argument("--dist-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)  # a process of [dist] (spawn_dist)
     args = ap.parse_args(argv)
+    if args.dist_worker:
+        return dist_worker_main(json.loads(args.dist_worker))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -3274,6 +3611,9 @@ def main(argv=None) -> int:
     phase_parity(mp, device)
     serial_batch_check(mp, device)
     mesh = phase_mesh(mp, device, card, errors)
+    zero_k(fit_kernels)
+    dist = phase_dist(device, card, args.seed, mesh)
+    errors.check("dist")
 
     res, k1_launches, k2_launches, sched_server = phase_scheduler(device, card, errors)
     phase_audit(sched_server, device, card, errors)
@@ -3331,6 +3671,7 @@ def main(argv=None) -> int:
             "launches_kubeadm": kubeadm[k],
             "launches_failover": failover[k],
             "launches_mesh": mesh[k],
+            "launches_dist": dist[k],
         }
 
     kernels = {

@@ -39,7 +39,11 @@ block. Readers that need whole rows in one place (the auditor's
 selection and preemption what-if) read a sharded generation through
 :func:`gather_snapshot`, which assembles the rows they ask for on the
 mesh's first device. A mesh of one survivor (``single_device_shardings``)
-pins every upload and every scatter to that survivor's device.
+pins every upload and every scatter to that survivor's device. On a mesh
+that spans processes a process holds only its own entries' blocks (a
+:class:`RemoteBlock` marks each of the others): the upload, the scatter
+and ``with_field`` write only those, taken from the host masters every
+process holds alike, and ``gather_snapshot`` refuses a remote row.
 ``add_pods_bulk`` (the cache's bulk assume), the row-aggregate repair the
 cache's unwind path calls, ``utilization_stats`` and the PDB budget
 column refresh (``update_pdb_blocked``, read by
@@ -1575,7 +1579,8 @@ class SnapshotEncoder:
                     # changes every row-major block)
                     base = dl.snap
                     blocks = [
-                        self._reshape_merge(blk, masters, reshaped, s, base.n_blocks)
+                        blk if isinstance(blk, RemoteBlock)
+                        else self._reshape_merge(blk, masters, reshaped, s, base.n_blocks)
                         for s, blk in enumerate(base.blocks)
                     ]
                     dl.result = ShardedSnapshot(base.mesh, blocks)
@@ -1615,13 +1620,14 @@ class SnapshotEncoder:
         if not isinstance(snap, ShardedSnapshot):
             return _scatter_block(snap, masters, idx_np, idx_np, self.device, donate)
         # sharded: each dirty row goes to the block that owns it, at its
-        # local row id; every block takes the global fields wholesale
+        # local row id; every block takes the global fields wholesale (a
+        # remote block is its own process's to write)
         b = snap.rows
         owner = idx_np // b
         return ShardedSnapshot(
             snap.mesh,
             [
-                _scatter_block(
+                blk if isinstance(blk, RemoteBlock) else _scatter_block(
                     blk, masters, idx_np[owner == s], idx_np[owner == s] - s * b,
                     entry.device, donate,
                 )
@@ -2089,7 +2095,10 @@ def _copy_snapshot(snap):
     updates this fresh copy instead of the pinned tensors
     (DonationLease). A sharded generation clones every block."""
     if isinstance(snap, ShardedSnapshot):
-        return ShardedSnapshot(snap.mesh, [_copy_snapshot(b) for b in snap.blocks])
+        return ShardedSnapshot(
+            snap.mesh,
+            [b if isinstance(b, RemoteBlock) else _copy_snapshot(b) for b in snap.blocks],
+        )
     return DeviceSnapshot(*(t.clone() for t in snap))
 
 
@@ -2126,16 +2135,27 @@ def _scatter_block(
     return DeviceSnapshot(**out)
 
 
+class RemoteBlock(NamedTuple):
+    """The place of a row block that another process of a mesh owns
+    (rows ``[start, stop)``); this process holds no tensor of it."""
+
+    start: int
+    stop: int
+    process: int
+
+
 class ShardedSnapshot:
     """The device snapshot split over a mesh's entries along the node axis
     (what ``SnapshotEncoder.flush`` returns once ``set_sharding`` adopted a
     mesh; the reference's DeviceSnapshot of ``NamedSharding`` arrays).
     ``blocks[s]`` is a DeviceSnapshot on ``mesh.devices[s].device`` with
     rows ``[s * rows, (s + 1) * rows)`` of every row-major field and a full
-    copy of every replicated one. Every block's tensors are allocations of
-    their own, never views into one ``[N, ...]`` tensor (K1 takes only
-    inputs that start on 16 bytes). The node-sharded kernels
-    (``parallel/sharded.py``) update the blocks in place."""
+    copy of every replicated one; on a mesh that spans processes, the
+    blocks of other processes' entries are :class:`RemoteBlock` markers.
+    Every block's tensors are allocations of their own, never views into
+    one ``[N, ...]`` tensor (K1 takes only inputs that start on 16 bytes).
+    The node-sharded kernels (``parallel/sharded.py``) update the blocks
+    in place."""
 
     __slots__ = ("mesh", "blocks")
 
@@ -2152,7 +2172,10 @@ class ShardedSnapshot:
     @property
     def rows(self) -> int:
         """Rows per block."""
-        return int(self.blocks[0].valid.shape[0])
+        blk = self.blocks[0]
+        if isinstance(blk, RemoteBlock):
+            return blk.stop - blk.start
+        return int(blk.valid.shape[0])
 
     @property
     def n(self) -> int:
@@ -2161,16 +2184,38 @@ class ShardedSnapshot:
 
     @property
     def first(self) -> torch.device:
-        return self.mesh.devices[0].device
+        return self.mesh.first
+
+    @property
+    def local(self):
+        """(index, block) of every block this process holds."""
+        return [(s, b) for s, b in enumerate(self.blocks) if not isinstance(b, RemoteBlock)]
 
     def with_field(self, name: str, full: np.ndarray) -> "ShardedSnapshot":
         """A new ShardedSnapshot whose field `name` holds `full` (all N
-        rows, split into fresh blocks); every other tensor is shared."""
-        blocks = []
-        for s, (entry, blk) in enumerate(zip(self.mesh.devices, self.blocks)):
+        rows, split into fresh blocks of this process); every other
+        tensor is shared."""
+        blocks = list(self.blocks)
+        for s, blk in self.local:
             part = _block_of(full, name, s, len(self.blocks))
-            blocks.append(blk._replace(**{name: torch.tensor(part, device=entry.device)}))
+            blocks[s] = blk._replace(
+                **{name: torch.tensor(part, device=self.mesh.devices[s].device)}
+            )
         return ShardedSnapshot(self.mesh, blocks)
+
+
+def _refuse_remote(snap: ShardedSnapshot, what: str, rows=None) -> None:
+    """A process reads only the blocks it holds (the reference's
+    ``jax.device_get`` of an array that is not fully addressable raises)."""
+    b = snap.rows
+    for s, blk in enumerate(snap.blocks):
+        if isinstance(blk, RemoteBlock) and (
+            rows is None or bool(((rows >= blk.start) & (rows < blk.stop)).any())
+        ):
+            raise ValueError(
+                f"{what}: rows [{s * b}, {(s + 1) * b}) live in process "
+                f"{blk.process}, and a process reads only its own blocks"
+            )
 
 
 def num_rows(snap) -> int:
@@ -2184,12 +2229,13 @@ def gather_snapshot(snap, rows=None) -> DeviceSnapshot:
     """THE reader helper of a sharded snapshot: a single-device
     DeviceSnapshot on the mesh's first device holding `rows` (global row
     ids, any order; None = every row) of every row-major field, taken
-    from the blocks that own them, and the replicated fields of the first
-    block. Every tensor is freshly allocated. The readers that do not run
-    node-sharded yet (the victim selection, the preemption what-if, the
-    auditor's fetch, the what-if overlay) take their snapshot through
-    it; on a single-device snapshot it returns the snapshot itself (rows
-    None) or an ``index_select`` of its rows."""
+    from the blocks that own them, and the replicated fields of this
+    process's first block; a row of another process's block raises
+    (``ValueError``). Every tensor is freshly allocated. The readers that
+    do not run node-sharded yet (the victim selection, the preemption
+    what-if, the auditor's fetch, the what-if overlay) take their
+    snapshot through it; on a single-device snapshot it returns the
+    snapshot itself (rows None) or an ``index_select`` of its rows."""
     if not isinstance(snap, ShardedSnapshot):
         if rows is None:
             return snap
@@ -2202,10 +2248,12 @@ def gather_snapshot(snap, rows=None) -> DeviceSnapshot:
         )
     dev = snap.first
     out = {}
+    _refuse_remote(snap, "gather_snapshot", None if rows is None else np.asarray(rows, np.int64))
+    own = snap.local[0][1]
     if rows is None:
         for name in DeviceSnapshot._fields:
             if name in _GLOBAL_FIELDS:
-                out[name] = getattr(snap.blocks[0], name).clone()
+                out[name] = getattr(own, name).clone()
             else:
                 out[name] = torch.cat([getattr(b, name).to(dev) for b in snap.blocks])
         return DeviceSnapshot(**out)
@@ -2223,9 +2271,9 @@ def gather_snapshot(snap, rows=None) -> DeviceSnapshot:
             ))
     for name in DeviceSnapshot._fields:
         if name in _GLOBAL_FIELDS:
-            out[name] = getattr(snap.blocks[0], name).clone()
+            out[name] = getattr(own, name).clone()
             continue
-        ref = getattr(snap.blocks[0], name)
+        ref = getattr(own, name)
         dst = torch.empty((len(rows_np),) + tuple(ref.shape[1:]), dtype=ref.dtype, device=dev)
         for s, pos, local in picks:
             dst.index_copy_(0, pos, getattr(snap.blocks[s], name).index_select(0, local).to(dev))
@@ -2234,11 +2282,13 @@ def gather_snapshot(snap, rows=None) -> DeviceSnapshot:
 
 
 def _upload_sharded(masters: DeviceSnapshot, mesh) -> ShardedSnapshot:
-    """Fresh row blocks of every master, one per mesh entry, each a
-    tensor of its own on its entry's device."""
+    """Fresh row blocks of every master, one per mesh entry of this
+    process, each a tensor of its own on its entry's device; a
+    :class:`RemoteBlock` for every other process's entry."""
     n = masters.valid.shape[0]
     if n % mesh.size:
         raise ValueError(f"{n} snapshot rows do not divide over a mesh of {mesh.size}")
+    b = n // mesh.size
     return ShardedSnapshot(
         mesh,
         [
@@ -2248,6 +2298,7 @@ def _upload_sharded(masters: DeviceSnapshot, mesh) -> ShardedSnapshot:
                     for name, m in zip(DeviceSnapshot._fields, masters)
                 )
             )
+            if mesh.is_local(s) else RemoteBlock(s * b, (s + 1) * b, entry.process)
             for s, entry in enumerate(mesh.devices)
         ],
     )

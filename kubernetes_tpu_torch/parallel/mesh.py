@@ -28,6 +28,15 @@ The placement descriptions (``snapshot_shardings``, ``replicated``,
 ``single_device_shardings``) keep the reference's split of fields: every
 row-major field shards on nodes; ``eterm_topo_key``, ``eterm_kind`` and
 ``band_prio`` replicate. ``SnapshotEncoder.set_sharding`` takes them.
+
+A mesh can span processes (the reference's ``jax.distributed`` mesh over
+DCN): under a process group (``parallel/distributed.initialize``),
+``make_mesh`` lists every process's entries in rank order, each entry
+carrying its owning process, and every process builds the same
+:class:`Mesh`. A process holds the row blocks of its own entries
+(``Mesh.local``) and computes the replicated outputs on its first one
+(``Mesh.first``); ``parallel/sharded.py`` answers the merges with
+collectives over the group.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 
 from ..ops.encoding import _GLOBAL_FIELDS, DeviceSnapshot
+from . import distributed
 
 NODES_AXIS = "nodes"
 
@@ -46,27 +56,45 @@ REPLICATED_FIELDS = _GLOBAL_FIELDS
 
 class MeshDevice(NamedTuple):
     """One mesh entry: a distinct id (what a probe and a placement test
-    read) on a ``torch.device`` (where its tensors live)."""
+    read) on a ``torch.device`` (where its tensors live) of the owning
+    `process` (its rank; 0 without a process group)."""
 
     id: int
     device: torch.device
+    process: int = 0
 
 
 class Mesh:
     """An ordered list of mesh entries over the one ``nodes`` axis (the
-    reference's ``Mesh(np.asarray(devices), (NODES_AXIS,))``). Entry 0 is
-    the first device: pod batches, the merges' results and every output
-    the host reads live there."""
+    reference's ``Mesh(np.asarray(devices), (NODES_AXIS,))``). A process
+    drives its own entries (:attr:`local`: every entry of a mesh in one
+    process); its first one (:attr:`first`) holds pod batches, the
+    merges' results and every output the host reads. A mesh made under a
+    process group (``distributed``) lists the entries rank-major and
+    merges through the group's collectives."""
 
-    __slots__ = ("devices",)
+    __slots__ = ("devices", "distributed", "local")
 
-    def __init__(self, devices: Sequence[MeshDevice]):
+    def __init__(self, devices: Sequence[MeshDevice], distributed: bool = False):
         if not devices:
             raise ValueError("a mesh needs at least one device")
         ids = [d.id for d in devices]
         if len(set(ids)) != len(ids):
             raise ValueError(f"mesh entries need distinct ids, got {ids}")
+        procs = [d.process for d in devices]
+        if procs != sorted(procs):
+            raise ValueError(f"mesh entries must be rank-major, got processes {procs}")
+        if len(set(procs)) > 1 and not distributed:
+            raise ValueError(
+                f"entries of processes {sorted(set(procs))} need a mesh made "
+                "under a process group (make_mesh after distributed.initialize)"
+            )
         self.devices = tuple(devices)
+        self.distributed = distributed
+        me = _distributed_index() if distributed else procs[0]
+        self.local = tuple(d for d in self.devices if d.process == me)
+        if not self.local:
+            raise ValueError(f"process {me} owns no entry of {self!r}")
 
     @property
     def size(self) -> int:
@@ -74,16 +102,32 @@ class Mesh:
 
     @property
     def first(self) -> torch.device:
-        return self.devices[0].device
+        return self.local[0].device
+
+    def is_local(self, s: int) -> bool:
+        return self.devices[s] in self.local
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, Mesh) and self.devices == other.devices
+        return (
+            isinstance(other, Mesh)
+            and self.devices == other.devices
+            and self.distributed == other.distributed
+        )
 
     def __hash__(self) -> int:
-        return hash(self.devices)
+        return hash((self.devices, self.distributed))
 
     def __repr__(self) -> str:
-        return "Mesh(" + ", ".join(f"{d.id}@{d.device}" for d in self.devices) + ")"
+        return "Mesh(" + ", ".join(
+            f"{d.id}@{d.device}" + (f"/p{d.process}" if self.distributed else "")
+            for d in self.devices
+        ) + ")"
+
+
+def _distributed_index() -> int:
+    if not distributed.is_initialized():
+        raise RuntimeError("a mesh over processes needs distributed.initialize first")
+    return distributed.process_index()
 
 
 def _entry(d, i: int) -> MeshDevice:
@@ -97,7 +141,12 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
     """A mesh over `devices` (mesh entries, or ``torch.device``s / strings,
     which get their CUDA index as id). None means every visible CUDA
     device; there is no CPU default — a CPU mesh is named explicitly, as
-    ``make_mesh(virtual_devices("cpu", 8))``."""
+    ``make_mesh(virtual_devices("cpu", 8))``.
+
+    Under a process group `devices` are this process's entries (None: its
+    CUDA devices); every process's are all-gathered, rank-major, which is
+    ``jax.devices()``'s order, and a plain device of rank r's k local ones
+    gets the global id ``r * k + i``. Every process must call it."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
@@ -106,14 +155,35 @@ def make_mesh(devices: Optional[Sequence] = None) -> Mesh:
                 "a mesh on the CPU explicitly"
             )
         devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    return Mesh([_entry(d, i) for i, d in enumerate(devices)])
+    if not distributed.is_initialized():
+        return Mesh([_entry(d, i) for i, d in enumerate(devices)])
+    rank, k = distributed.process_index(), len(devices)
+    mine = []
+    for i, d in enumerate(devices):
+        if isinstance(d, MeshDevice):
+            if d.process != rank:
+                raise ValueError(f"process {rank} was given {d}, an entry of process {d.process}")
+            mine.append((d.id, str(d.device)))
+        else:
+            mine.append((rank * k + i, str(torch.device(d))))
+    return Mesh(
+        [
+            MeshDevice(i, torch.device(dev), p)
+            for p, entries in enumerate(distributed.all_gather_object(mine))
+            for i, dev in entries
+        ],
+        distributed=True,
+    )
 
 
 def virtual_devices(device, n: int) -> list:
-    """`n` mesh entries with ids 0..n-1, all on one ``torch.device``: the
-    port's counterpart of the XLA host-platform device-count flag."""
+    """`n` mesh entries all on one ``torch.device``: the port's
+    counterpart of the XLA host-platform device-count flag. Ids 0..n-1;
+    under a process group this process's entries, ids ``rank * n + i``
+    (each worker's ``--xla_force_host_platform_device_count``)."""
     dev = torch.device(device)
-    return [MeshDevice(i, dev) for i in range(n)]
+    rank = distributed.process_index()
+    return [MeshDevice(rank * n + i, dev, rank) for i in range(n)]
 
 
 class NodeSharding(NamedTuple):

@@ -32,6 +32,20 @@ reference's ``P(None, NODES_AXIS)`` outputs do. The results equal the
 single-device kernels' exactly (the merges are exact: sums of integral
 float32 weights under 2**24, maxima, sorts).
 
+A mesh made under a process group (``Mesh.distributed``, the reference's
+mesh over ``jax.distributed``) keeps the SPMD contract: every process
+holds the same host state and the same pod-side tensors, drives only the
+shards of its own entries (``Mesh.local``), and computes every replicated
+output on its own first device. Each merge all-gathers the shards'
+request values, packed into one buffer, so that every process runs the
+unchanged single-process merge on all shards in global order: sums in
+shard order, ties at the lower global row, each process's outputs equal
+to one process's bit for bit. A read of node rows (a candidate's
+columns, a chosen row's score) is filled on the process that owns each
+row and combined by an all-gather and a select by owner (a select leaves
+-0.0 and NaN as they are, where a sum would not). Commits go to the
+process's own blocks only.
+
 The device-loss classifier: the reference's markers are XLA runtime and
 tunnel messages; they stay as they are. On a CUDA card a lost device
 shows as a CUDA runtime error, which torch raises as
@@ -58,7 +72,14 @@ from typing import Callable, List, Optional
 
 import torch
 
-from ..ops.encoding import RES_CPU, RES_MEM, DeviceSnapshot, ShardedSnapshot, _block_of
+from ..ops.encoding import (
+    RES_CPU,
+    RES_MEM,
+    DeviceSnapshot,
+    RemoteBlock,
+    ShardedSnapshot,
+    _block_of,
+)
 from ..ops.lattice import (
     SC_BALANCED,
     SC_LEAST_ALLOC,
@@ -75,6 +96,7 @@ from ..ops.wavelattice import (
     _pod_rows,
     _result,
 )
+from . import distributed
 from .mesh import Mesh
 
 
@@ -169,13 +191,14 @@ def call_with_device_retry(
 def shard_snapshot(snap: DeviceSnapshot, mesh: Mesh) -> ShardedSnapshot:
     """Place a single-device snapshot onto the mesh with node-axis
     sharding: each row-major field split into one fresh row block per
-    entry, each replicated field copied to every entry. Row counts are
+    entry of this process (a :class:`RemoteBlock` for another process's),
+    each replicated field copied to every entry. Row counts are
     capacity-padded powers of two, so they divide over a power-of-two
     mesh."""
-    if int(snap.valid.shape[0]) % mesh.size:
-        raise ValueError(
-            f"{int(snap.valid.shape[0])} snapshot rows do not divide over a mesh of {mesh.size}"
-        )
+    n = int(snap.valid.shape[0])
+    if n % mesh.size:
+        raise ValueError(f"{n} snapshot rows do not divide over a mesh of {mesh.size}")
+    b = n // mesh.size
     return ShardedSnapshot(
         mesh,
         [
@@ -185,6 +208,7 @@ def shard_snapshot(snap: DeviceSnapshot, mesh: Mesh) -> ShardedSnapshot:
                     for name, t in zip(DeviceSnapshot._fields, snap)
                 )
             )
+            if mesh.is_local(s) else RemoteBlock(s * b, (s + 1) * b, e.process)
             for s, e in enumerate(mesh.devices)
         ],
     )
@@ -196,7 +220,10 @@ class NodeSharded:
     part s holds columns ``[s * rows, (s + 1) * rows)`` on entry s's
     device. ``cpu()`` (and ``numpy()``, ``np.asarray``) assembles all N
     columns on the host, global column c being part ``c // rows``'s local
-    column ``c % rows``: what the Scheduler's failure paths read."""
+    column ``c % rows``: what the Scheduler's failure paths read. On a
+    mesh over processes another process's part is None, and ``cpu()``
+    raises (the reference's ``jax.device_get`` of an array that is not
+    fully addressable does)."""
 
     __slots__ = ("parts",)
 
@@ -204,6 +231,12 @@ class NodeSharded:
         self.parts = tuple(parts)
 
     def cpu(self) -> torch.Tensor:
+        for s, p in enumerate(self.parts):
+            if p is None:
+                raise ValueError(
+                    f"NodeSharded: part {s} lives in another process, and a "
+                    "process reads only its own parts"
+                )
         return torch.cat([p.cpu() for p in self.parts], dim=-1)
 
     def numpy(self):
@@ -248,12 +281,54 @@ def _merge(reqs, dev0: torch.device):
     return out
 
 
+def _slots(mesh: Mesh) -> list:
+    """Each entry's position among its own process's entries."""
+    seen, out = {}, []
+    for e in mesh.devices:
+        out.append(seen.get(e.process, 0))
+        seen[e.process] = out[-1] + 1
+    return out
+
+
+def _flat(value) -> tuple:
+    return value if isinstance(value, tuple) else (value,)
+
+
+def _gather_requests(reqs: List[dict], mesh: Mesh, dev0: torch.device) -> List[dict]:
+    """Every shard's merge requests, in mesh order, on every process of a
+    mesh over processes: this process's shards' request values packed
+    into one buffer and all-gathered (ONE collective a yield), then read
+    back at each entry's owner and slot. Every shard asks for the same
+    keys, shapes and dtypes (the blocks have equal rows)."""
+    keys = list(reqs[0])
+    like = [t for k in keys for t in _flat(reqs[0][k].value)]
+    seg = distributed.packed_size(like)
+    slots = _slots(mesh)
+    g = distributed.all_gather_packed(
+        [t.to(dev0) for r in reqs for k in keys for t in _flat(r[k].value)],
+        pad_to=(max(slots) + 1) * seg,
+    )
+    out = []
+    for e, j in zip(mesh.devices, slots):
+        vals = iter(distributed.unpack(g[e.process, j * seg:(j + 1) * seg], like))
+        out.append({
+            k: r._replace(
+                value=tuple(next(vals) for _ in r.value)
+                if isinstance(r.value, tuple) else next(vals)
+            )
+            for k, r in reqs[0].items()
+        })
+    return out
+
+
 def _lockstep(gens: List, mesh: Mesh) -> list:
-    """Drive one block generator per mesh entry in step: at each yield the
-    shards' merge requests are merged on the first device and the results
-    sent back, copied to each shard's device (the top-M list, which only
-    the first device reads on, stays there).
-    Returns each generator's return value, in mesh order."""
+    """Drive one block generator per entry this process holds
+    (``mesh.local``, in mesh order) in step: at each yield the shards'
+    merge requests (every process's, on a mesh over processes) are merged
+    on the first device and the results sent back, copied to each shard's
+    device (the top-M list, which only the first device reads on, stays
+    there). Returns each generator's return value at its entry's mesh
+    position, None at another process's entries."""
     dev0 = mesh.first
     sent = [None] * len(gens)
     while True:
@@ -266,23 +341,30 @@ def _lockstep(gens: List, mesh: Mesh) -> list:
         if done:
             if reqs:
                 raise RuntimeError("mesh shards fell out of step")
-            return done
+            out = iter(done)
+            return [next(out) if mesh.is_local(s) else None for s in range(mesh.size)]
+        if mesh.distributed:
+            reqs = _gather_requests(reqs, mesh, dev0)
         merged = {k: (r.op, _merge([q[k] for q in reqs], dev0)) for k, r in reqs[0].items()}
         sent = [
             {
                 k: (v if op == "top" else v.to(e.device))
                 for k, (op, v) in merged.items()
             }
-            for e in mesh.devices
+            for e in mesh.local
         ]
 
 
 def _take_rows(parts, idx: torch.Tensor, rows: int, dev0: torch.device) -> torch.Tensor:
     """``full[idx]`` of an ``[N, ...]`` tensor held as per-shard row blocks
-    (`parts[s]` holds rows ``[s * rows, (s + 1) * rows)``): each index
-    read from the shard that owns it; ``[*idx.shape, ...]`` on dev0."""
+    (`parts[s]` holds rows ``[s * rows, (s + 1) * rows)``, None where
+    another process holds them): each index read from the shard that owns
+    it; ``[*idx.shape, ...]`` on dev0. On a mesh over processes only this
+    process's rows are filled (:func:`_by_owner` completes them)."""
     out = None
     for s, t in enumerate(parts):
+        if t is None:
+            continue
         local = idx - s * rows if s else idx
         v = t[local.clamp(0, rows - 1).to(t.device)].to(dev0)
         if out is None:
@@ -295,12 +377,43 @@ def _take_rows(parts, idx: torch.Tensor, rows: int, dev0: torch.device) -> torch
 
 def _take_tn(parts, t_idx: torch.Tensor, idx: torch.Tensor, rows: int, dev0) -> torch.Tensor:
     """``full[t_idx, idx]`` (broadcast) of a ``[TPL, N]`` tensor held as
-    per-shard column blocks, each column read from its owning shard."""
+    per-shard column blocks, each column read from its owning shard (this
+    process's, as :func:`_take_rows`)."""
     out = None
     for s, t in enumerate(parts):
+        if t is None:
+            continue
         local = idx - s * rows if s else idx
         v = t[t_idx.to(t.device), local.clamp(0, rows - 1).to(t.device)].to(dev0)
         out = v if out is None else torch.where((local >= 0) & (local < rows), v, out)
+    return out
+
+
+def _by_owner(mesh: Mesh, rows: int, items) -> list:
+    """Complete the row reads of :func:`_take_rows`/:func:`_take_tn`:
+    `items` are (this process's partial read, the global rows it reads,
+    of the read's leading shape). On a mesh over processes every
+    process's partials go into one packed all-gather and each position is
+    selected from the process owning its row (an index outside ``[0, N)``
+    reads as on one process, from entry 0's); elsewhere the partials are
+    the reads."""
+    if not mesh.distributed:
+        return [v for v, _ in items]
+    like = [v for v, _ in items]
+    dev0 = mesh.first
+    g = distributed.all_gather_packed(like)
+    by_proc = [distributed.unpack(g[p], like) for p in range(g.shape[0])]
+    owner_of = torch.tensor([e.process for e in mesh.devices], device=dev0)
+    n = rows * mesh.size
+    out = []
+    for j, (_v, idx) in enumerate(items):
+        idx = idx.to(dev0)
+        proc = owner_of[torch.where((idx >= 0) & (idx < n), idx // rows, 0)]
+        res = by_proc[0][j]
+        for p in range(1, len(by_proc)):
+            m = proc == p
+            res = torch.where(m.reshape(m.shape + (1,) * (res.dim() - m.dim())), by_proc[p][j], res)
+        out.append(res)
     return out
 
 
@@ -387,26 +500,29 @@ class ShardedWaveKernel:
         weights = torch.as_tensor(weights, dtype=f32).to(dev0)
         if tuple(noise.shape) != (P, m_c):
             raise ValueError(f"tie noise is {tuple(noise.shape)}, want {(P, m_c)}")
+        local = snap.local
 
         # (a) per-shard Stage A, (b) its merges
         sts = _lockstep(
             [
                 k._stage_a(
-                    blk, _on(tpl, e.device), _on(pt, e.device), weights.to(e.device),
-                    m_c, s * b,
+                    blk, _on(tpl, mesh.devices[s].device), _on(pt, mesh.devices[s].device),
+                    weights.to(mesh.devices[s].device), m_c, s * b,
                 )
-                for s, (e, blk) in enumerate(zip(mesh.devices, snap.blocks))
+                for s, blk in local
             ],
             mesh,
         )
 
         def parts(name):
-            return [st[name] for st in sts]
+            return [None if st is None else st[name] for st in sts]
 
-        st = sts[0]
+        st = sts[local[0][0]]
         top_i = st["top_i"]
         t_of, pinned, pin_rows = _pod_rows(tb, TPL, n)
-        pin_feas = _take_tn(parts("feasible0"), t_of, pin_rows, b, dev0)
+        (pin_feas,) = _by_owner(
+            mesh, b, [(_take_tn(parts("feasible0"), t_of, pin_rows, b, dev0), pin_rows)]
+        )
         cand_slot, cand_nodes, cand_valid = _candidates(
             tb, st["top_v"], top_i, noise, t_of, pinned, pin_rows, pin_feas, n, m_c
         )
@@ -421,65 +537,84 @@ class ShardedWaveKernel:
         )
         v_cap = k.v_cap
         free_parts = parts("free0")
-        port_parts = [blk.port_counts for blk in snap.blocks]
-        dom_parts = [x.T for x in parts("dom_j")]  # [rows, J]
-        cnt_parts = [x.T for x in parts("cnt0")]
+        port_parts = [None if isinstance(blk, RemoteBlock) else blk.port_counts for blk in snap.blocks]
+        dom_parts = [None if x is None else x.T for x in parts("dom_j")]  # [rows, J]
+        cnt_parts = [None if x is None else x.T for x in parts("cnt0")]
         tpl_rows = torch.arange(TPL, device=dev0)[:, None]
-        c.static_ok_c = _take_tn(parts("static_ok"), tpl_rows, top_i, b, dev0)  # [TPL, M]
-        c.free0_cols = _take_rows(free_parts, top_i, b, dev0)  # [TPL, M, R]
-        c.port0_cols = _take_rows(port_parts, top_i, b, dev0)  # [TPL, M, PV]
-        dom_cm = _take_rows(dom_parts, top_i, b, dev0)  # [TPL, M, J]
-        c.dom_cols = dom_cm.permute(0, 2, 1)  # [TPL, J, M]
-        c.cnt0_cols = _take_rows(cnt_parts, top_i, b, dev0).permute(0, 2, 1)
-        c.dom_cols_flat = dom_cm.permute(2, 0, 1).reshape(J, TPL * m_c).clamp(0, v_cap - 1).long()
-        free_pin = _take_rows(free_parts, pin_rows, b, dev0)  # [P, R]
-        port_pin = _take_rows(port_parts, pin_rows, b, dev0)  # [P, PV]
-        dom_pin_pm = _take_rows(dom_parts, pin_rows, b, dev0)  # [P, J]
+        reads = {
+            "static_ok_c": (_take_tn(parts("static_ok"), tpl_rows, top_i, b, dev0), top_i),  # [TPL, M]
+            "free0_cols": (_take_rows(free_parts, top_i, b, dev0), top_i),  # [TPL, M, R]
+            "port0_cols": (_take_rows(port_parts, top_i, b, dev0), top_i),  # [TPL, M, PV]
+            "dom_cm": (_take_rows(dom_parts, top_i, b, dev0), top_i),  # [TPL, M, J]
+            "cnt0_cm": (_take_rows(cnt_parts, top_i, b, dev0), top_i),
+            "free_pin": (_take_rows(free_parts, pin_rows, b, dev0), pin_rows),  # [P, R]
+            "port_pin": (_take_rows(port_parts, pin_rows, b, dev0), pin_rows),  # [P, PV]
+            "dom_pin_pm": (_take_rows(dom_parts, pin_rows, b, dev0), pin_rows),  # [P, J]
+        }
         if k.has_pinned:
-            c.dom_pin = dom_pin_pm.T  # [J, P]
-            c.dom_pin_flat = c.dom_pin.clamp(0, v_cap - 1).long()
-            c.cnt0_pin = _take_rows(cnt_parts, pin_rows, b, dev0).T  # [J, P]
-            c.pin_req = tpl.req[t_of]  # [P, R]
-            c.pin_ports = tpl.port_mask[t_of]  # [P, PV]
+            reads["cnt0_pin"] = (_take_rows(cnt_parts, pin_rows, b, dev0), pin_rows)
         if k.score_refresh:
-            resid = []
-            for x, e in zip(sts, mesh.devices):
-                w = weights.to(e.device)
+            resid = [None] * len(sts)
+            for s, _blk in local:
+                x, w = sts[s], weights.to(mesh.devices[s].device)
                 w_res = (
                     w[SC_LEAST_ALLOC] * x["least"]
                     + w[SC_MOST_ALLOC] * x["most"]
                     + w[SC_BALANCED] * x["balanced"]
                     + w[SC_REQ_TO_CAP] * x["rtc"]
                 )
-                resid.append(x["total_score"] - w_res)
-            c.cand_resid = _take_tn(resid, t_of[:, None], cand_nodes, b, dev0)  # [P, M]
-
-            def col(field, r):
-                return _take_rows([getattr(blk, field)[:, r] for blk in snap.blocks], cand_nodes, b, dev0)
-
-            c.alloc_cpu_c = col("allocatable", RES_CPU).to(f32).clamp(min=1.0)
-            c.alloc_mem_c = col("allocatable", RES_MEM).to(f32).clamp(min=1.0)
-            c.nz_cpu0_c = col("nonzero_req", RES_CPU)
-            c.nz_mem0_c = col("nonzero_req", RES_MEM)
+                resid[s] = x["total_score"] - w_res
+            reads["cand_resid"] = (_take_tn(resid, t_of[:, None], cand_nodes, b, dev0), cand_nodes)  # [P, M]
+            for name, field, r in (
+                ("alloc_cpu_c", "allocatable", RES_CPU), ("alloc_mem_c", "allocatable", RES_MEM),
+                ("nz_cpu0_c", "nonzero_req", RES_CPU), ("nz_mem0_c", "nonzero_req", RES_MEM),
+            ):
+                col = [
+                    None if isinstance(blk, RemoteBlock) else getattr(blk, field)[:, r]
+                    for blk in snap.blocks
+                ]
+                reads[name] = (_take_rows(col, cand_nodes, b, dev0), cand_nodes)
+        got = dict(zip(reads, _by_owner(mesh, b, list(reads.values()))))
+        c.static_ok_c = got["static_ok_c"]
+        c.free0_cols = got["free0_cols"]
+        c.port0_cols = got["port0_cols"]
+        dom_cm = got["dom_cm"]
+        c.dom_cols = dom_cm.permute(0, 2, 1)  # [TPL, J, M]
+        c.cnt0_cols = got["cnt0_cm"].permute(0, 2, 1)
+        c.dom_cols_flat = dom_cm.permute(2, 0, 1).reshape(J, TPL * m_c).clamp(0, v_cap - 1).long()
+        free_pin, port_pin, dom_pin_pm = got["free_pin"], got["port_pin"], got["dom_pin_pm"]
+        if k.has_pinned:
+            c.dom_pin = dom_pin_pm.T  # [J, P]
+            c.dom_pin_flat = c.dom_pin.clamp(0, v_cap - 1).long()
+            c.cnt0_pin = got["cnt0_pin"].T  # [J, P]
+            c.pin_req = tpl.req[t_of]  # [P, R]
+            c.pin_ports = tpl.port_mask[t_of]  # [P, PV]
+        if k.score_refresh:
+            c.cand_resid = got["cand_resid"]
+            c.alloc_cpu_c = got["alloc_cpu_c"].to(f32).clamp(min=1.0)
+            c.alloc_mem_c = got["alloc_mem_c"].to(f32).clamp(min=1.0)
+            c.nz_cpu0_c = got["nz_cpu0_c"]
+            c.nz_mem0_c = got["nz_mem0_c"]
             c.pod_nz_cpu = tpl.nonzero_req[:, RES_CPU][t_of][:, None]
             c.pod_nz_mem = tpl.nonzero_req[:, RES_MEM][t_of][:, None]
-        blk0 = snap.blocks[0]
+        blk0 = local[0][1]
         c.req_d = torch.zeros((n,) + tuple(blk0.requested.shape[1:]), dtype=blk0.requested.dtype, device=dev0)
         c.port_d = torch.zeros((n,) + tuple(blk0.port_counts.shape[1:]), dtype=blk0.port_counts.dtype, device=dev0)
         c.nz2_d = torch.zeros((n, 2), dtype=blk0.nonzero_req.dtype, device=dev0)
         rows = _ColumnRows(c, c.free0_cols, c.port0_cols, dom_cm, free_pin, port_pin, dom_pin_pm, pin_rows)
         placed, chosen, req_t, ports_t = k._waves(c, rows)
 
-        # (d) each commit on the shard that owns its row
-        for s, (e, blk) in enumerate(zip(mesh.devices, snap.blocks)):
-            d = e.device
-            local = chosen - s * b
-            mine = placed & (local >= 0) & (local < b)
+        # (d) each commit on the shard that owns its row (this process's)
+        for s, blk in local:
+            d = mesh.devices[s].device
+            local_row = chosen - s * b
+            mine = placed & (local_row >= 0) & (local_row < b)
             _commit(
-                blk, torch.where(mine, local, 0).to(d), mine[:, None].to(d),
+                blk, torch.where(mine, local_row, 0).to(d), mine[:, None].to(d),
                 _on(tb, d), t_of.to(d), req_t.to(d), ports_t.to(d),
             )
-        score_at = _take_tn(parts("total_score"), t_of, chosen.clamp(0, n - 1), b, dev0)
+        at = chosen.clamp(0, n - 1)
+        (score_at,) = _by_owner(mesh, b, [(_take_tn(parts("total_score"), t_of, at, b, dev0), at)])
         return snap, _result(
             tb, t_of, pinned, pin_feas, st["feas_cnt_tpl"], placed, chosen, score_at,
             NodeSharded(parts("resolvable_tpl")), NodeSharded(parts("feasible0")),
@@ -495,9 +630,10 @@ class ShardedScheduleBatch:
     argmax goes to the first shard holding the maximum (ties to the lower
     global row) and the carry's commit to the shard owning the chosen
     row. ``noise`` is the single-device ``[P, N]`` draw on the first
-    device, split by row block, so the result equals one device's. The
-    snapshot is read, never written; ``resolvable`` is
-    :class:`NodeSharded`, the rest lands on the first device."""
+    device, split by row block (each process takes its own shards'
+    columns), so the result equals one device's. The snapshot is read,
+    never written; ``resolvable`` is :class:`NodeSharded`, the rest lands
+    on the first device."""
 
     def __init__(self, base: ScheduleBatch, mesh: Mesh):
         self.base = base
@@ -510,21 +646,23 @@ class ShardedScheduleBatch:
         p = batch.valid.shape[0]
         if tuple(noise.shape) != (p, n):
             raise ValueError(f"tie noise is {tuple(noise.shape)}, want {(p, n)}")
+        devs = snap.mesh.devices
         rs = _lockstep(
             [
                 self.base._block(
-                    blk, _on(batch, e.device), weights,
-                    noise[:, s * b:(s + 1) * b].to(e.device), shard=s * b,
+                    blk, _on(batch, devs[s].device), weights,
+                    noise[:, s * b:(s + 1) * b].to(devs[s].device), shard=s * b,
                 )
-                for s, (e, blk) in enumerate(zip(snap.mesh.devices, snap.blocks))
+                for s, blk in snap.local
             ],
             snap.mesh,
         )
+        r0 = rs[snap.local[0][0]]
         return BatchResult(
-            chosen=rs[0].chosen,
-            score=rs[0].score,
-            feasible_count=rs[0].feasible_count,
-            resolvable=NodeSharded([r.resolvable for r in rs]),
+            chosen=r0.chosen,
+            score=r0.score,
+            feasible_count=r0.feasible_count,
+            resolvable=NodeSharded([None if r is None else r.resolvable for r in rs]),
         )
 
 

@@ -74,6 +74,11 @@ reference's, method for method; what changed is the device half:
   sharded snapshot through ``ops/encoding.gather_snapshot``, which
   assembles the rows they need on the mesh's first device.
   ``parallel/mesh.virtual_devices("cpu", 8)`` runs a mesh on the CPU.
+  A mesh that would span processes (entries of several processes, or any
+  mesh under a process group of more than one) is refused at
+  construction, as the reference's Scheduler never runs one: it reads the
+  snapshot on the host and its device-loss ladder probes devices in its
+  own process.
 * ``host_callback_binds=True`` launches ``ops/wavelattice.make_wave_kernel_cb``
   under a ``ops/hostcallback`` ticket: the fast index payload's split-phase
   copy goes to ``wavepath.HostCallbackDelivery``, whose thread delivers it
@@ -427,6 +432,24 @@ def _unported_settings(cfg: KubeSchedulerConfiguration, device: torch.device):
     return []
 
 
+def _refuse_process_mesh(mesh_devices) -> None:
+    """A mesh over processes is not the Scheduler's: raise, naming why."""
+    from ..parallel import distributed
+
+    if not mesh_devices:
+        return
+    procs = {getattr(d, "process", 0) for d in mesh_devices}
+    if len(procs) > 1 or distributed.process_count() > 1:
+        raise ValueError(
+            "the Scheduler does not run a mesh that spans processes "
+            f"(entries of processes {sorted(procs)}, "
+            f"{distributed.process_count()} in the process group): it reads "
+            "the snapshot on the host and its device-loss ladder probes the "
+            "devices of its own process, as the reference's Scheduler does; "
+            "drive parallel/sharded's kernels directly on such a mesh"
+        )
+
+
 class Scheduler:
     """device: where the snapshot and the kernels live; None means the
     CUDA card (raises without one), "cpu" runs on the CPU. noise: the wave
@@ -462,6 +485,7 @@ class Scheduler:
                 torch.device("cuda", i) for i in range(torch.cuda.device_count())
             ]
         self._mesh_devices = list(mesh_devices) if mesh_devices is not None else None
+        _refuse_process_mesh(self._mesh_devices)
         self._mesh = None  # set by _bringup() when the mesh is adopted
         unported = _unported_settings(self.cfg, self.device)
         if unported:

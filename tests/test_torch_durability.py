@@ -1634,34 +1634,43 @@ def test_follower_catchup_reopens_degraded_mode():
 
 def test_degraded_epoch_transitions_hit_the_wal(tmp_path):
     """The WAL records both epoch transitions (degraded + restored), and
-    recover_full surfaces the commit index."""
-    from kubernetes_tpu_torch.runtime.wal import WriteAheadLog
+    recover_full surfaces the commit index.
+
+    The waits allow a loaded machine: the healthy write's ack has a 2 s
+    window, a sync or a lift 30 s. The "restored" record is appended
+    after the write gate lifts, off the coordinator's lock
+    (``ConsensusCoordinator._after_reopen``), so the test waits for the
+    record itself rather than reading the WAL as soon as the gate opens."""
+    from kubernetes_tpu_torch.runtime.wal import WriteAheadLog, parse_wal_line
 
     wal = WriteAheadLog(str(tmp_path / "primary"), fsync=False)
     primary = APIServer(wal=wal)
-    listener = ReplicationListener(ack_timeout_s=0.3, cluster_size=3)
+    listener = ReplicationListener(ack_timeout_s=2.0, cluster_size=3)
     listener.attach(primary)
     f = Follower(listener.address, lease_s=60.0).start()
-    assert f.wait_synced(5.0)
+    assert f.wait_synced(30.0)
     primary.create("pods", _pod_cons("ok"))
     f.stop()
-    assert _wait(lambda: listener.follower_count == 0, timeout=5.0)
+    assert _wait(lambda: listener.follower_count == 0, timeout=30.0)
     with pytest.raises(QuorumLost):
         primary.create("pods", _pod_cons("boom"))
     late = Follower(listener.address, lease_s=60.0).start()
-    assert late.wait_synced(5.0)
-    assert _wait(lambda: not primary.write_gate.degraded, timeout=5.0)
-    from kubernetes_tpu_torch.runtime.wal import parse_wal_line
+    assert late.wait_synced(30.0)
+    assert _wait(lambda: not primary.write_gate.degraded, timeout=30.0)
 
-    wal_text = open(str(tmp_path / "primary") + ".wal").read()
-    records = [
-        parse_wal_line(line) for line in wal_text.splitlines() if line
-    ]
-    events = [
-        rec["event"]
-        for rec in records
-        if rec is not None and rec.get("verb") == "commit"
-    ]
+    def commit_events():
+        wal_text = open(str(tmp_path / "primary") + ".wal").read()
+        records = [
+            parse_wal_line(line) for line in wal_text.splitlines() if line
+        ]
+        return [
+            rec["event"]
+            for rec in records
+            if rec is not None and rec.get("verb") == "commit"
+        ]
+
+    assert _wait(lambda: "restored" in commit_events(), timeout=30.0)
+    events = commit_events()
     assert "degraded" in events and "restored" in events
     rv, _objects, commit = WriteAheadLog.recover_full(str(tmp_path / "primary"))
     assert commit > 0 and rv >= commit

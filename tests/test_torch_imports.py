@@ -21,7 +21,8 @@ import kubernetes_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 # the data-plane defense slice's and the capacity-planning slice's
 # modules are among them
-for new in ("parallel.sharded", "parallel.mesh", "ops.hostcallback",
+for new in ("parallel.sharded", "parallel.mesh", "parallel.distributed",
+            "ops.hostcallback",
             "scheduler.antientropy", "testing.device_faults",
             "autoscaler", "autoscaler.planner", "autoscaler.controller",
             "descheduler", "descheduler.planner", "descheduler.executor",
