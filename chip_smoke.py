@@ -94,15 +94,19 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    API server's bindings, and every measured pod in a zone that held an
    app=bench pod.
 6. Latency: run_latency_benchmark at max(10, min(0.3 x the burst pods/s,
-   2000)) pods/s with 500 pods (bench.py's rule); all 500 must bind, and
-   K1 must be launched.
+   2000)) pods/s with 500 pods (bench.py's rule); all 500 must bind, K1
+   must be launched, waterfall_vs_e2e (the mean in-cycle span sum over the
+   e2e histogram's mean) must lie in 0.95-1.05, and the p99 exemplar's
+   trace id must resolve through the tracer to a finished trace.
 7. [serial]: SchedulingPodAffinity/5000 through run_benchmark with
    use_wave=False (the serial lattice at batch 4096): the gate of phase 5
    (5000/5000 bound, bindings checked from the API server, 0 guard trips,
    no ERROR logged); pods/s, batches and serial-kernel seconds per batch.
-8. [preempt]: run_preemption_benchmark at the reference's defaults
-   (1,000 full nodes, a burst of 1,000 priority-100 pods needing
-   victims). Requires all 1,000 bound, vector attempts > 0, no
+8. [preempt]: run_preemption_benchmark at a quarter of the reference's
+   defaults (PREEMPT_NODES = 250 full nodes, a burst of 250 priority-100
+   pods needing victims; cut from 1,000, whose burst can spend minutes in
+   oracle_reject host walks, to keep the script inside its time limit).
+   Requires every preemptor bound, vector attempts > 0, no
    kernel_error fallback and no preemption guard trip.
 9. [standby]: start_standby() on SchedulingPodAffinity/5000's cluster,
    500 pods queued while it stands by, promote(), all 500 bound; the
@@ -150,6 +154,34 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    hard-pair path): the gate of phase 5 (all bound, bindings checked, no
    two measured pods on one node, 0 guard trips, K1 launched); pods/s and
    the waves of every launched batch.
+16a. [suite]: every other scheduling workload of perf/workloads.py at its
+   defined size, through run_benchmark with the reference's settings, in
+   this order: Gang/5000 (15,000 pods in 300 gangs of 50, min-member 50)
+   under the coscheduling profile built as bench.py builds it, with its
+   600 s timeout; TopologySpreading/5000; SchedulingBasic/5000;
+   SchedulingNodeAffinity/5000; SchedulingPreferredPodAffinity/5000;
+   SchedulingSecrets/5000; SchedulingDensity/1000 (30,000 pods); and
+   SchedulingInTreePVs/500 (the host lane). Each: the gate of phase 5
+   (all measured pods bound, 0 guard trips and unwound assumes, the
+   defense counters 0, no ERROR, K1 launched), and its placements checked
+   from the API server's objects against the workload's own spec: every
+   pod bound exactly once, requested <= allocatable on every node; Gang:
+   every gang wholly bound (a partly bound gang fails) and 0 Permit
+   timeouts; TopologySpreading: app=bench pods per zone within maxSkew 1;
+   NodeAffinity: every measured pod in zone-0 .. zone-{zones/2 - 1};
+   InTreePVs: at most 16 GCE PDs on a node (non_csi.go) and every disk on
+   one pod; PreferredPodAffinity: the share of measured pods in a zone
+   holding another app=bench pod is printed (preferred: no hard check).
+   Then one fresh measured batch of the workload through the wave path
+   (main_path's cluster), held as in phases 3 and 4: K1 against the plain
+   fit on the card, and the CPU against the card, chosen nodes equal but
+   for near-ties, each shown against its TIE_EPS bound. One line per
+   workload: bound/measured, pods/s, e2e p50/p99, batches, K1 launches,
+   blocking readbacks per batch, guard trips, unwound assumes, pod
+   creation seconds, for Gang the Permit waits, timeouts and rejects, and
+   the (pods, placed) of the first 8 committed wave batches with the
+   median placed per batch (a hard-spread burst's mode shows there).
+   [time] is printed before and after, thread_report before.
 16b. [tuner]: run_tuner_benchmark() at the reference's defaults (8
    nodes, 4 rounds, the cost flip, timeout 120 s): every burst bound, no
    promotion before the flip, a converged promotion with a cost weight,
@@ -223,14 +255,15 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    launch (wave or serial) lost latches after K losses. Every pod bound
    exactly once, none oversubscribed, no assume leaked.
 
-The Scheduler phases (5-9, 11, 13-16e) print the auditor's passes, its skips by
+The Scheduler phases (5-9, 11, 13-16e, 16a) print the auditor's passes, its skips by
 reason, drift rows, rebuilds and scheduler_device_down, and fail unless
 the last three are 0. Every phase but the fault phases fails on any ERROR
 record the port logs; a fault phase fails on any ERROR it did not cause
 ([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 11, 12-16c, 16d and 16e) and read just after. The last lines are the
+2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 11, 12-16c, 16a (each workload), 16d and 16e)
+and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
@@ -244,7 +277,8 @@ process entry (``launches_gym``, ``launches_tuner``: the serial lattice,
 0; ``launches_cmd``), the kubeadm control plane and its promoted standby
 (``launches_kubeadm``, ``launches_failover``), the burst on the 4-shard
 mesh (``launches_mesh``), the two [dist] workers' wave batches
-(``launches_dist``),
+(``launches_dist``), the [suite] workloads' runs together
+(``launches_suite``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -790,6 +824,7 @@ def phase_scheduler(device, card: str, errors: ErrorLog):
 def phase_latency(device, burst_pods_per_s: float, errors: ErrorLog, card: str):
     from kubernetes_tpu_torch.perf.harness import run_latency_benchmark
     from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+    from kubernetes_tpu_torch.utils.tracing import tracer
 
     rate = max(10.0, min(burst_pods_per_s * 0.3, 2000.0))
     lat = run_latency_benchmark(
@@ -806,17 +841,29 @@ def phase_latency(device, burst_pods_per_s: float, errors: ErrorLog, card: str):
         f"{lat.readbacks_per_bind:.4f}; pipeline depth {lat.pipeline_depth}, "
         f"max in flight {lat.max_waves_inflight}; guard trips {lat.guard_trips}, "
         f"unwound assumes {lat.unwound_assumes}")
+    trace = tracer.get(lat.p99_trace_id) if lat.p99_trace_id else None
+    log(f"[latency] waterfall_vs_e2e {lat.waterfall_vs_e2e:.4f}; p99 exemplar trace "
+        f"{lat.p99_trace_id or '(none)'}: "
+        + (f"finished {trace['finished']}, outcome {trace.get('outcome')}, stages "
+           f"{json.dumps({k: round(v, 2) for k, v in trace['stages_ms'].items()})} ms"
+           if trace else "not in the tracer"))
     errors.check("latency")
     defense_report("latency", card, res=lat)
     if lat.scheduled != 500:
         raise AssertionError(f"[latency] {lat.scheduled}/500 bound")
+    if not 0.95 <= lat.waterfall_vs_e2e <= 1.05:
+        raise AssertionError(f"[latency] waterfall_vs_e2e {lat.waterfall_vs_e2e} outside 0.95-1.05")
+    if trace is None or not trace["finished"]:
+        raise AssertionError("[latency] the p99 exemplar does not resolve to a finished trace")
     return lat
 
 
 def main_path(device, seed: int, name: str = "SchedulingPodAffinity/5000", cfg=None):
     """Encode the workload's nodes on `device`, schedule its initial then
     its measured pods through the wave path, check the result. Returns a
-    dict of what the caller reports."""
+    dict of what the caller reports. The pods that the encoder sends to
+    the host lane (HOST_LANE workloads' in-tree volumes) are left to the
+    Scheduler's host path: counted in "fallback", never placed here."""
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
     from kubernetes_tpu_torch.ops.lattice import weights_for_policy
@@ -840,7 +887,7 @@ def main_path(device, seed: int, name: str = "SchedulingPodAffinity/5000", cfg=N
 
     init = schedule_pods(enc, cache, init_pods, weights, rng, cfg)
     if init.unscheduled or init.fallback or len(init.placed) != len(init_pods):
-        raise AssertionError(f"init pods: {len(init.placed)}/{len(init_pods)} placed")
+        raise AssertionError(f"{name} init pods: {len(init.placed)}/{len(init_pods)} placed")
     zone_of = {n.metadata.name: n.metadata.labels["topology.kubernetes.io/zone"] for n in nodes}
     bench_zones = {zone_of[node] for _pod, node in init.placed}
 
@@ -855,34 +902,36 @@ def main_path(device, seed: int, name: str = "SchedulingPodAffinity/5000", cfg=N
     launches = fit_kernels.fit_mask.launches
 
     placed = len(res.placed)
-    if placed != len(measured) or res.unscheduled or res.fallback:
+    host_lane = len(res.fallback) if wl.name in HOST_LANE else 0
+    if placed + host_lane != len(measured) or res.unscheduled or len(res.fallback) != host_lane:
         raise AssertionError(
-            f"{placed}/{len(measured)} placed, {len(res.unscheduled)} unscheduled, "
-            f"{len(res.fallback)} fallback"
+            f"{name}: {placed}/{len(measured)} placed, {len(res.unscheduled)} "
+            f"unscheduled, {len(res.fallback)} fallback"
         )
     valid = enc.m_valid
     if not (enc.m_req <= enc.m_alloc)[valid].all():
-        raise AssertionError("requested exceeds allocatable on some node")
-    i = 0
-    for bo in res.batches:
-        zones = {zone_of[node] for _pod, node in bo.placed}
-        if not zones <= bench_zones:
-            raise AssertionError(
-                f"batch {i}: pods placed in zones {sorted(zones - bench_zones)} "
-                "that held no app=bench pod (required affinity)"
-            )
-        bench_zones |= zones
-        i += 1
+        raise AssertionError(f"{name}: requested exceeds allocatable on some node")
+    if wl.name == "SchedulingPodAffinity":
+        for i, bo in enumerate(res.batches):
+            zones = {zone_of[node] for _pod, node in bo.placed}
+            if not zones <= bench_zones:
+                raise AssertionError(
+                    f"batch {i}: pods placed in zones {sorted(zones - bench_zones)} "
+                    "that held no app=bench pod (required affinity)"
+                )
+            bench_zones |= zones
     return {
         "enc": enc, "cache": cache, "weights": weights, "rng": rng, "cfg": cfg,
         "factory": factory, "placed": placed, "wall_s": wall, "setup_s": setup_s,
-        "batches": res.batches, "launches": launches,
+        "batches": res.batches, "launches": launches, "host_lane": host_lane,
     }
 
 
 def compare_results(a_snap, a_res, b_snap, b_res, tie_ok: bool, what: str):
     """Exact equality of masks, counts and snapshot; with tie_ok, chosen
-    may differ inside a TIE_EPS near-tie (scores within rtol 1e-5)."""
+    may differ inside a TIE_EPS near-tie (scores within rtol 1e-5): each
+    such pod is shown with both rows and scores against the tie bound.
+    Returns the number of near-tie chosen differences."""
     from kubernetes_tpu_torch.ops.wavelattice import TIE_EPS
 
     def np_(x):
@@ -896,8 +945,14 @@ def compare_results(a_snap, a_res, b_snap, b_res, tie_ok: bool, what: str):
     diff = np.flatnonzero(ca != cb)
     if diff.size and not tie_ok:
         raise AssertionError(f"{what}: chosen differs for {diff.size} pods")
-    for i in diff:
-        if abs(float(sa[i]) - float(sb[i])) > TIE_EPS * max(1.0, abs(float(sa[i]))):
+    for n, i in enumerate(diff):
+        gap = abs(float(sa[i]) - float(sb[i]))
+        bound = TIE_EPS * max(1.0, abs(float(sa[i])))
+        if n < 5 or gap > bound:
+            log(f"[tie] {what}: pod {i} chose row {ca[i]} (score {float(sa[i])!r}) "
+                f"against row {cb[i]} (score {float(sb[i])!r}): |gap| {gap:.3g} "
+                f"{'<=' if gap <= bound else '>'} TIE_EPS bound {bound:.3g}")
+        if gap > bound:
             raise AssertionError(f"{what}: pod {i} chose {ca[i]} vs {cb[i]} outside a tie")
     same = ca == cb
     if tie_ok:
@@ -913,8 +968,13 @@ def compare_results(a_snap, a_res, b_snap, b_res, tie_ok: bool, what: str):
     return int(diff.size)
 
 
-def phase_parity(mp, device):
-    """Phases 3 and 4 on one fresh batch of the main path's workload."""
+def hold_batch(mp, device, what: str) -> dict:
+    """Phases 3 and 4 on one fresh measured batch of `mp`'s workload: its
+    wave kernel with K1 and with the plain fit on the card from the same
+    snapshot clone and tie noise (every WaveResult field and the snapshot
+    equal), then on the CPU with the same noise (exact masks, counts and
+    snapshot, chosen equal but for shown near-ties). Returns the batch,
+    its kernels, inputs and figures."""
     from kubernetes_tpu_torch.ops.templates import TemplateBatch
     from kubernetes_tpu_torch.ops.wavelattice import make_wave_kernel
     from kubernetes_tpu_torch.scheduler.wavepath import prepare_batch
@@ -938,9 +998,7 @@ def phase_parity(mp, device):
 
     s_fit, r_fit = kern_fit.with_noise(clone(snap), prep.eb.batch, prep.ptab, mp["weights"], noise)
     s_plain, r_plain = kern_plain.with_noise(clone(snap), prep.eb.batch, prep.ptab, mp["weights"], noise)
-    compare_results(s_fit, r_fit, s_plain, r_plain, False, "K1 vs plain fit in the wave kernel")
-    log(f"[wave] K1 fit == plain fit on one main-path batch: every WaveResult field "
-        f"and the snapshot equal ({int(r_fit.placed.sum())} of {len(pods)} placed)")
+    compare_results(s_fit, r_fit, s_plain, r_plain, False, f"{what}: K1 vs plain fit")
 
     def cpu(nt):
         if isinstance(nt, TemplateBatch):
@@ -952,14 +1010,28 @@ def phase_parity(mp, device):
         cpu(snap), cpu(prep.eb.batch), cpu(prep.ptab), mp["weights"].cpu(), noise.cpu()
     )
     cpu_s = time.perf_counter() - t0
-    ties = compare_results(s_cpu, r_cpu, s_fit, r_fit, True, "CPU vs card wave kernel")
-    log(f"[wave] CPU run of the same batch ({cpu_s:.2f} s) agrees with the card "
-        f"({ties} near-tie chosen differences)")
+    ties = compare_results(s_cpu, r_cpu, s_fit, r_fit, True, f"{what}: CPU vs card")
+    return {
+        "pods": len(pods), "placed": int(r_fit.placed.sum()), "ties": ties,
+        "cpu_s": cpu_s, "n_waves": prep.n_waves, "host_lane": int(prep.eb.fallback.sum()),
+        "kern": kern_fit, "snap": snap, "prep": prep, "noise": noise, "clone": clone,
+    }
+
+
+def phase_parity(mp, device):
+    """Phases 3 and 4 on one fresh batch of the main path's workload, and
+    a profile of its wave kernel."""
+    h = hold_batch(mp, device, "main path")
+    log(f"[wave] K1 fit == plain fit on one main-path batch: every WaveResult field "
+        f"and the snapshot equal ({h['placed']} of {h['pods']} placed)")
+    log(f"[wave] CPU run of the same batch ({h['cpu_s']:.2f} s) agrees with the card "
+        f"({h['ties']} near-tie chosen differences)")
+    kern, snap, prep, clone = h["kern"], h["snap"], h["prep"], h["clone"]
     try:
         profile_device(
-            f"wave kernel, one batch of {cfg.batch_size} pods, {prep.n_waves} waves",
-            lambda: kern_fit.with_noise(
-                clone(snap), prep.eb.batch, prep.ptab, mp["weights"], noise
+            f"wave kernel, one batch of {h['pods']} pods, {h['n_waves']} waves",
+            lambda: kern.with_noise(
+                clone(snap), prep.eb.batch, prep.ptab, mp["weights"], h["noise"]
             ),
         )
     except (RuntimeError, AttributeError) as e:  # measurement only
@@ -1058,6 +1130,13 @@ def serial_batch_check(mp, device) -> dict:
     return {"card_s": card_s, "cpu_s": cpu_s, "max_score_diff": max_diff, **prof}
 
 
+# [preempt]'s nodes and preemptors, cut from the reference's 1,000: a
+# burst that spans more than one select batch can spend minutes in
+# oracle_reject host walks (ROADMAP queue 3), and the script, [suite]
+# included, must stay inside its time limit
+PREEMPT_NODES = 250
+
+
 def phase_serial(device, card: str, errors: ErrorLog) -> dict:
     """SchedulingPodAffinity/5000 through run_benchmark with use_wave=False:
     the serial lattice at the accelerator settings (batch 4096, 5,000
@@ -1095,15 +1174,15 @@ def phase_serial(device, card: str, errors: ErrorLog) -> dict:
 
 
 def phase_preempt(device, card: str, errors: ErrorLog) -> dict:
-    """run_preemption_benchmark at the reference's defaults: 1,000 full
-    nodes (4 x 1-cpu priority-0 pods each), a burst of 1,000 2-cpu
-    priority-100 pods. Fails unless every preemptor is bound, the batched
-    pass served attempts, no kernel_error fallback and no guard trip."""
+    """run_preemption_benchmark at PREEMPT_NODES full nodes (4 x 1-cpu
+    priority-0 pods each), a burst of as many 2-cpu priority-100 pods.
+    Fails unless every preemptor is bound, the batched pass served
+    attempts, no kernel_error fallback and no guard trip."""
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.perf.harness import run_preemption_benchmark
 
     zero_k(fit_kernels)
-    res = run_preemption_benchmark(device=device, timeout_s=600)
+    res = run_preemption_benchmark(PREEMPT_NODES, PREEMPT_NODES, device=device, timeout_s=600)
     k1, k2 = count_k(fit_kernels)
     log(f"[preempt] {res.num_nodes} full nodes, burst {res.burst_pods}: "
         f"scheduled {res.scheduled}, all bound in {res.time_to_all_bound_s:.3f} s; "
@@ -2703,6 +2782,272 @@ def phase_hardpair(device, card: str, errors: ErrorLog) -> dict:
     return {"res": res, "k1": k1, "k2": k2, "waves": waves}
 
 
+# [suite]: every scheduling workload of perf/workloads.py that the other
+# phases do not drive, at its defined size, in this order (Gang first)
+SUITE = (
+    "Gang/5000",
+    "TopologySpreading/5000",
+    "SchedulingBasic/5000",
+    "SchedulingNodeAffinity/5000",
+    "SchedulingPreferredPodAffinity/5000",
+    "SchedulingSecrets/5000",
+    "SchedulingDensity/1000",
+    "SchedulingInTreePVs/500",
+)
+# workloads whose measured pods the encoder sends to the host lane
+HOST_LANE = ("SchedulingInTreePVs",)
+GCE_PD_LIMIT = 16  # non_csi.go: default max GCE PD volumes a node attaches
+ZONE = "topology.kubernetes.io/zone"
+
+
+class RunCounts:
+    """Counts, while installed, the pods whose Permit returned WAIT (parked
+    in the waiting-pods map), the waits that ended in the permit timeout
+    or in a reject, and the pods the Scheduler requeued through backoff
+    (an all-deferred wave batch's stall breaker among them), by wrapping
+    the framework's two Permit entry points and the queue's
+    requeue_backoff; and lists each wave batch the Scheduler commits as
+    (pods, placed), in commit order, by wrapping Scheduler._commit_batch."""
+
+    def __init__(self):
+        from kubernetes_tpu_torch.scheduler import scheduler
+        from kubernetes_tpu_torch.scheduler.framework import runtime
+        from kubernetes_tpu_torch.scheduler.queue import scheduling_queue
+
+        self.fw = runtime.Framework
+        self.queue = scheduling_queue.PriorityQueue
+        self.sched = scheduler.Scheduler
+        self.waits = self.timeouts = self.rejects = self.backoffs = 0
+        self.batches = []
+        self._lock = threading.Lock()
+        self._real = (self.fw.run_permit_plugins, self.fw.wait_on_permit,
+                      self.queue.requeue_backoff, self.sched._commit_batch)
+
+    def _add(self, field: str) -> None:
+        with self._lock:
+            setattr(self, field, getattr(self, field) + 1)
+
+    def __enter__(self):
+        from kubernetes_tpu_torch.scheduler.framework.interface import Code
+
+        run_permit, wait_on, requeue_backoff, commit_batch = self._real
+        count = self
+
+        def run_permit_plugins(fw, state, pod, node_name):
+            st = run_permit(fw, state, pod, node_name)
+            if st is not None and st.code == Code.WAIT:
+                count._add("waits")
+            return st
+
+        def wait_on_permit(fw, pod):
+            st = wait_on(fw, pod)
+            if st is not None and st.code != Code.SUCCESS:
+                count._add("timeouts" if "timeout" in st.message else "rejects")
+            return st
+
+        def backoff(queue, pi):
+            count._add("backoffs")
+            return requeue_backoff(queue, pi)
+
+        def commit(sched, p, arrays, *rest):
+            placed = np.asarray(arrays[1])[: len(p.pis)]
+            with count._lock:
+                count.batches.append((len(p.pis), int(placed.sum())))
+            return commit_batch(sched, p, arrays, *rest)
+
+        self.fw.run_permit_plugins = run_permit_plugins
+        self.fw.wait_on_permit = wait_on_permit
+        self.queue.requeue_backoff = backoff
+        self.sched._commit_batch = commit
+        return self
+
+    def __exit__(self, *exc):
+        (self.fw.run_permit_plugins, self.fw.wait_on_permit,
+         self.queue.requeue_backoff, self.sched._commit_batch) = self._real
+
+
+def check_suite_placements(server, wl, what: str) -> str:
+    """The placement check of one [suite] workload, from the API server's
+    objects and the workload's own spec: every pod bound exactly once and
+    requested <= allocatable on every node; then the workload's own rule.
+    Returns what it checked, for the log."""
+    from collections import Counter, defaultdict
+
+    from kubernetes_tpu_torch.scheduler.framework.plugins.coscheduling import (
+        GROUP_LABEL, MIN_MEMBER_ANNOTATION,
+    )
+
+    nodes, pods = check_capacity(server, what)
+    if len(pods) != wl.num_measured_pods + wl.num_init_pods:
+        raise AssertionError(f"[{what}] {len(pods)} pods in the API server")
+    once = Counter(server.applied.values())
+    if set(once) != {1} or sum(once.values()) != len(pods):
+        raise AssertionError(f"[{what}] binds per pod {dict(once)} for {len(pods)} pods")
+    zone_of = {n.metadata.name: n.metadata.labels.get(ZONE) for n in nodes}
+    measured = [p for p in pods if p.metadata.name.startswith("pod-")]
+    if len(measured) != wl.num_measured_pods:
+        raise AssertionError(f"[{what}] {len(measured)} measured pods")
+    done = f"{len(pods)} pods bound once, requested <= allocatable on all {len(nodes)} nodes"
+    if wl.name == "Gang":
+        # each gang and its quorum as its pods state them: the group label
+        # and the min-member annotation
+        members = defaultdict(list)
+        quorum = {}
+        for p in measured:
+            g = p.metadata.labels[GROUP_LABEL]
+            members[g].append(bool(p.spec.node_name))
+            quorum.setdefault(g, set()).add(int(p.metadata.annotations[MIN_MEMBER_ANNOTATION]))
+        partial = [g for g, b in members.items() if any(b) and not all(b)]
+        whole = [g for g, b in members.items()
+                 if all(b) and len(quorum[g]) == 1 and len(b) >= min(quorum[g])]
+        if partial or len(whole) != len(members):
+            raise AssertionError(
+                f"[{what}] {len(whole)} of {len(members)} gangs wholly bound with their "
+                f"min-member, {len(partial)} partly bound (e.g. {partial[:3]})")
+        sizes = sorted(Counter(len(b) for b in members.values()).items())
+        mins = sorted(Counter(min(q) for q in quorum.values()).items())
+        return (f"{done}; {len(whole)} gangs wholly bound (members: count {sizes}; "
+                f"min-member: count {mins}), 0 partly bound")
+    if wl.name == "TopologySpreading":
+        per_zone = Counter(zone_of[p.spec.node_name] for p in pods
+                           if p.metadata.labels.get("app") == "bench")
+        counts = [per_zone.get(z, 0) for z in sorted(set(zone_of.values()))]
+        skew = max(counts) - min(counts)
+        if skew > 1:
+            raise AssertionError(f"[{what}] app=bench pods per zone {counts}: skew {skew} > maxSkew 1")
+        return f"{done}; app=bench pods per zone {counts}, skew {skew} <= maxSkew 1"
+    if wl.name == "SchedulingNodeAffinity":
+        allowed = {f"zone-{z}" for z in range(wl.zones // 2)}
+        stray = [p.metadata.name for p in measured if zone_of[p.spec.node_name] not in allowed]
+        if stray:
+            raise AssertionError(f"[{what}] {len(stray)} measured pods outside {sorted(allowed)}")
+        return f"{done}; every measured pod in {sorted(allowed)}"
+    if wl.name == "SchedulingInTreePVs":
+        disks = defaultdict(set)
+        users = Counter()
+        for p in pods:
+            for v in p.spec.volumes:
+                if v.gce_persistent_disk is not None:
+                    disks[p.spec.node_name].add(v.gce_persistent_disk.pd_name)
+                    users[v.gce_persistent_disk.pd_name] += 1
+        most = max((len(d) for d in disks.values()), default=0)
+        if most > GCE_PD_LIMIT or set(users.values()) != {1} or len(users) != wl.num_measured_pods:
+            raise AssertionError(
+                f"[{what}] most GCE PDs on a node {most} (limit {GCE_PD_LIMIT}); "
+                f"pods per disk {dict(Counter(users.values()))}")
+        return (f"{done}; {len(users)} disks each on one pod, at most {most} on a "
+                f"node (GCE PD limit {GCE_PD_LIMIT})")
+    if wl.name == "SchedulingPreferredPodAffinity":
+        bench = Counter(zone_of[p.spec.node_name] for p in pods
+                        if p.metadata.labels.get("app") == "bench")
+        with_peer = sum(1 for p in measured if bench[zone_of[p.spec.node_name]] > 1)
+        hosts = Counter(p.spec.node_name for p in measured)
+        return (f"{done}; preferred (no hard check): {with_peer / len(measured):.4f} of the "
+                f"measured pods in a zone holding another app=bench pod, on "
+                f"{len(hosts)} distinct nodes")
+    return done
+
+
+def suite_config(wl):
+    """The Scheduler configuration a [suite] workload runs under: the
+    coscheduling profile for Gang (as bench.py builds it), else the
+    reference's defaults."""
+    from kubernetes_tpu_torch.scheduler.config import KubeSchedulerConfiguration, ProfileConfig
+    from kubernetes_tpu_torch.scheduler.framework.registry import coscheduling_plugin_set
+
+    if wl.name == "Gang":
+        return KubeSchedulerConfiguration(
+            profiles=[ProfileConfig(plugin_set=coscheduling_plugin_set())]
+        )
+    return None
+
+
+def phase_suite(device, card: str, errors: ErrorLog, seed: int) -> dict:
+    """[suite]: each workload through run_benchmark on `device` (the
+    APIServer, informers, queue and Scheduler, split-phase readback,
+    assume and bind), the gate of [scheduler] (all bound, 0 guard trips
+    and unwound assumes, no ERROR, the defense counters 0, K1 launched),
+    its placements checked from the API server (check_suite_placements)
+    and, for Gang, 0 Permit timeouts; then one fresh measured batch of
+    the same workload through main_path's wave path, held card against
+    CPU (hold_batch). One line per workload; returns the K1 and K2
+    launches of the Scheduler runs together."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.harness import run_benchmark
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    errors.check("before suite")
+    total = {"k1": 0, "k2": 0}
+    rows = []
+    for name in SUITE:
+        wl = WORKLOADS[name]
+        what = f"suite {name}"
+        server = ledger_server()
+        t0 = time.perf_counter()
+        zero_k(fit_kernels)
+        with RunCounts() as counts:
+            res = run_benchmark(
+                wl, sched_config=suite_config(wl), device=device, server=server,
+                timeout_s=600.0 if wl.name == "Gang" else 300.0,  # bench.py's for Gang
+            )
+        k1, k2 = count_k(fit_kernels)
+        total["k1"] += k1
+        total["k2"] += k2
+        run_s = time.perf_counter() - t0
+        blocking = metrics.counter("scheduler_wave_readbacks_blocking_total")
+        gang = (f"; Permit waits {counts.waits}, timeouts {counts.timeouts}, "
+                f"rejects {counts.rejects}") if wl.name == "Gang" else ""
+        placed = [n for _pods, n in counts.batches]
+        log(f"[suite] {name}: {res.scheduled}/{res.num_measured_pods} bound in "
+            f"{res.duration_s:.3f} s = {res.throughput_pods_per_s:.1f} pods/s; e2e "
+            f"p50/p99 {res.e2e_p50_ms:.1f}/{res.e2e_p99_ms:.1f} ms; {res.n_batches} "
+            f"batches; K1 launches {k1}, K2 launches {k2}; blocking readbacks "
+            f"{blocking:.0f} = {blocking / max(res.n_batches, 1):.3f} per batch; guard "
+            f"trips {res.guard_trips}, unwound assumes {res.unwound_assumes}; pod "
+            f"creation {res.create_s:.3f} s; pods requeued to backoff "
+            f"{counts.backoffs}{gang}; {run_s:.1f} s with node creation; "
+            f"(pods, placed) of the first committed batches {counts.batches[:8]}, "
+            f"placed per batch median {float(np.median(placed)) if placed else 0.0:.1f}; "
+            f"card {card}")
+        errors.check(what)
+        defense_report(what, card, res=res)
+        if res.scheduled != res.num_measured_pods or res.unscheduled:
+            raise AssertionError(f"[{what}] {res.unscheduled} measured pods not bound")
+        if res.guard_trips or res.unwound_assumes:
+            raise AssertionError(f"[{what}] {res.guard_trips} guard trips, "
+                                 f"{res.unwound_assumes} unwound assumes")
+        if k1 <= 0 and device.type == "cuda":  # the CPU runs K1's plain version
+            raise AssertionError(f"[{what}] the Scheduler never launched K1")
+        if wl.name == "Gang" and (counts.timeouts or not counts.waits):
+            raise AssertionError(f"[{what}] {counts.timeouts} Permit timeouts, "
+                                 f"{counts.waits} Permit waits")
+        log(f"[suite] {name} checked from the API server: "
+            f"{check_suite_placements(server, wl, what)}")
+        del server
+
+        mp = main_path(device, seed, name)
+        h = hold_batch(mp, device, what)
+        # a batch whose every pod goes to the host lane places nothing on
+        # either side: its hold covers only that routing
+        routing = (" (no pod placed on either side: the hold covers only the "
+                   "routing to the host lane)") if h["placed"] == 0 and h["host_lane"] else ""
+        log(f"[suite] {name}: one fresh batch of {h['pods']} measured pods, "
+            f"{h['n_waves']} waves ({h['placed']} placed on the device, "
+            f"{h['host_lane']} sent to the host lane): K1 == plain fit, every "
+            f"WaveResult field and the snapshot equal; the CPU run ({h['cpu_s']:.2f} s) "
+            f"agrees with the card ({h['ties']} near-tie chosen differences){routing}; "
+            f"the wave path placed {mp['placed']}/{wl.num_measured_pods} "
+            f"({mp['host_lane']} to the host lane) in {mp['wall_s']:.3f} s")
+        del mp, h
+        gc.collect()
+        rows.append(f"{name} {res.throughput_pods_per_s:.1f} pods/s" + (
+            " (held batch: host-lane routing only)" if routing else ""))
+    log(f"[suite] {len(rows)} workloads bound and checked: " + ", ".join(rows)
+        + f"; card {card}")
+    return total
+
+
 # the control-plane phases' cluster and their rigs
 KUBEADM_WORKLOAD = "SchedulingPodAffinity/5000"
 KUBEADM_WORKERS = 3  # nodes joined over the bootstrap token
@@ -3646,7 +3991,10 @@ def main(argv=None) -> int:
     hetero = phase_hetero(device, card, errors)
     defrag = phase_defrag(device, card, errors)
     hardpair = phase_hardpair(device, card, errors)
-    log(f"[time] {time.monotonic() - t_start:.1f} s before [kubeadm]")
+    log(f"[time] {time.monotonic() - t_start:.1f} s before [suite]")
+    thread_report("before [suite]")
+    suite = phase_suite(device, card, errors, args.seed)
+    log(f"[time] {time.monotonic() - t_start:.1f} s after [suite], before [kubeadm]")
     thread_report("before [kubeadm]")
     kubeadm, failover = run_control_plane(card)
     log(f"[time] {time.monotonic() - t_start:.1f} s after [durability]")
@@ -3672,6 +4020,7 @@ def main(argv=None) -> int:
             "launches_failover": failover[k],
             "launches_mesh": mesh[k],
             "launches_dist": dist[k],
+            "launches_suite": suite[k],
         }
 
     kernels = {

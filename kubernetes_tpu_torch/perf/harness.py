@@ -148,6 +148,9 @@ class BenchResult:
     throughput_pods_per_s: float
     scheduled: int
     unscheduled: int
+    # seconds the harness spent creating the measured pods in the API
+    # server (inside duration_s: binds overlap it)
+    create_s: float = 0.0
     e2e_p50_ms: float = 0.0
     e2e_p90_ms: float = 0.0
     e2e_p99_ms: float = 0.0
@@ -322,6 +325,7 @@ def _run_benchmark_body(
         throughput_pods_per_s=thr,
         scheduled=measured_scheduled,
         unscheduled=cfg.num_measured_pods - measured_scheduled,
+        create_s=create_done - t0,
         e2e_p50_ms=(e2e.quantile(0.5) * 1000 if e2e else 0.0),
         e2e_p90_ms=(e2e.quantile(0.9) * 1000 if e2e else 0.0),
         e2e_p99_ms=(e2e.quantile(0.99) * 1000 if e2e else 0.0),

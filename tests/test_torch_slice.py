@@ -18,6 +18,12 @@ pod, keep requested <= allocatable, and every placement must pass the
 reference's host filter chain (the _oracle_framework route of
 tests/test_fuzz_differential.py) against the cluster holding every other
 pod placed up to the end of its batch.
+
+Last, a hard-spread burst (TopologySpreading at 200 nodes, the
+accelerator's batch settings) batch by batch in the same way: once a
+batch leaves the ten zones' counts unequal, every later batch of the
+reference places fewer pods than it has waves, and the port's batches
+place what the reference's place.
 """
 
 from types import SimpleNamespace
@@ -65,55 +71,63 @@ WORKLOADS = {
 }
 
 
-def _init_node(i: int) -> str:
-    return f"node-{(7 * i) % N_NODES}"
+def _init_node(i: int, n_nodes: int = N_NODES) -> str:
+    return f"node-{(7 * i) % n_nodes}"
 
 
-def _build(name):
-    n_init, n_measured = WORKLOADS[name]
+def _build(name, n_nodes=N_NODES, sizes=None):
+    n_init, n_measured = sizes or WORKLOADS[name]
     ref_nodes, ref_init, ref_fac = ref_build_workload(
-        RefWorkloadConfig(name, N_NODES, n_init, n_measured)
+        RefWorkloadConfig(name, n_nodes, n_init, n_measured)
     )
     port_nodes, port_init, port_fac = build_workload(
-        WorkloadConfig(name, N_NODES, n_init, n_measured)
+        WorkloadConfig(name, n_nodes, n_init, n_measured)
     )
-    ref_enc = RefEncoder(RefEncodingConfig.for_cluster(N_NODES))
+    ref_enc = RefEncoder(RefEncodingConfig.for_cluster(n_nodes))
     port_enc = port_encoder(ref_enc.cfg)
-    feed(ref_enc, ref_nodes, [(_init_node(i), p) for i, p in enumerate(ref_init)])
-    feed(port_enc, port_nodes, [(_init_node(i), p) for i, p in enumerate(port_init)])
+    feed(ref_enc, ref_nodes, [(_init_node(i, n_nodes), p) for i, p in enumerate(ref_init)])
+    feed(port_enc, port_nodes, [(_init_node(i, n_nodes), p) for i, p in enumerate(port_init)])
     return (
         (ref_enc, ref_nodes, ref_init, [ref_fac(i) for i in range(n_measured)]),
         (port_enc, port_nodes, port_init, [port_fac(i) for i in range(n_measured)]),
     )
 
 
-@pytest.mark.parametrize("name", list(WORKLOADS))
-def test_wavepath_matches_reference_batch_by_batch(name):
-    (ref_enc, _, _, ref_pods), (port_enc, _, _, port_pods) = _build(name)
+def _batch_by_batch(built, cfg, max_batches, first=None):
+    """Schedules the measured pods of `built` (_build's pair) batch by
+    batch on both packages, the port on the reference's tie noise: per
+    batch the wave count, hard-pair flag and inputs are equal, the results
+    agree under the tie rule and the snapshots after the commit are
+    equal; both sides then commit the reference's placements, and the
+    unplaced pods lead the next batch. `first`: the size of the first
+    batch (default cfg.batch_size). Returns (placed per batch, the pods
+    left)."""
+    (ref_enc, _, _, ref_pods), (port_enc, _, _, port_pods) = built
     ref_tc, port_tc = RefTemplateCache(ref_enc), TemplateCache(port_enc)
     ref_sched = SimpleNamespace(
         cache=SimpleNamespace(encoder=ref_enc),
-        cfg=SimpleNamespace(wave_n_waves=CFG.n_waves),
+        cfg=SimpleNamespace(wave_n_waves=cfg.n_waves),
     )
     weights = weights_for_policy("default")
     port_by_name = {p.metadata.name: p for p in port_pods}
     queue = [p.metadata.name for p in ref_pods]
     ref_by_name = {p.metadata.name: p for p in ref_pods}
-    batches = 0
-    while queue and batches < 10:
-        names, queue = queue[: CFG.batch_size], queue[CFG.batch_size:]
-        batches += 1
+    placed_per_batch = []
+    while queue and len(placed_per_batch) < max_batches:
+        take = first if first and not placed_per_batch else cfg.batch_size
+        names, queue = queue[:take], queue[take:]
+        batches = len(placed_per_batch) + 1
         # -- reference: bucket, encode, waves, launch in the donation lease --
         # the reference's bucket rule (Scheduler._schedule_batch_wave_once),
         # written out: a ragged tail pads to the small bucket, which rides
         # the narrow candidate list when it is narrower than the batch
-        small = min(256, CFG.batch_size)
-        pad = small if len(names) <= small else CFG.batch_size
-        small_bucket = pad == small and small < CFG.batch_size
+        small = min(256, cfg.batch_size)
+        pad = small if len(names) <= small else cfg.batch_size
+        small_bucket = pad == small and small < cfg.batch_size
         m_cand = (
-            min(RefSchedulerConfig().wave_m_cand_small, CFG.m_cand)
+            min(RefSchedulerConfig().wave_m_cand_small, cfg.m_cand)
             if small_bucket
-            else CFG.m_cand
+            else cfg.m_cand
         )
         eb = ref_tc.encode([ref_by_name[n] for n in names], pad_to=pad)
         ptab, _ = ref_build_pair_table(ref_enc, eb.tpl_np, eb.num_templates)
@@ -134,7 +148,7 @@ def test_wavepath_matches_reference_batch_by_batch(name):
         ref_snap_after = jax.device_get(ref_enc._device)
 
         # -- port: the same batch through prepare / launch / finish --
-        prep = prepare_batch(port_enc, port_tc, [port_by_name[n] for n in names], CFG)
+        prep = prepare_batch(port_enc, port_tc, [port_by_name[n] for n in names], cfg)
         assert (prep.n_waves, prep.has_hard) == (n_waves, has_hard)
         assert prep.kern.m_cand == m_cand
         assert prep.eb.batch.pod_tpl.shape[0] == pad
@@ -179,7 +193,31 @@ def test_wavepath_matches_reference_batch_by_batch(name):
         np.testing.assert_array_equal(port_enc.m_req, ref_enc.m_req)
         np.testing.assert_array_equal(port_enc.m_sel_counts, ref_enc.m_sel_counts)
         queue = [n for i, n in enumerate(names) if not placed[i]] + queue
-    assert batches >= 3 and not queue
+        placed_per_batch.append(int(placed[: len(names)].sum()))
+    return placed_per_batch, queue
+
+
+@pytest.mark.parametrize("name", list(WORKLOADS))
+def test_wavepath_matches_reference_batch_by_batch(name):
+    placed, left = _batch_by_batch(_build(name), CFG, 10)
+    assert len(placed) >= 3 and not left
+
+
+def test_hard_spread_burst_batches_place_what_the_reference_places():
+    """TopologySpreading (maxSkew 1 over 10 zones, DoNotSchedule) at 200
+    nodes with the accelerator's batch settings: a first batch of 7 pods
+    (the pods that arrived before the first pop) leaves the zones' counts
+    unequal, and from then on every full batch of the reference places
+    fewer pods than it has waves (16) though ~990 pods wait; the port's
+    batches, on the same tie noise, place the same pods. A burst popped
+    whole from the start places 160 a batch (16 waves x 10 zones) until a
+    batch ends unequal, so its batch count depends on the first pops."""
+    cfg = WavePathConfig()  # batch 4096, 512 candidates, 16 waves
+    placed, left = _batch_by_batch(
+        _build("TopologySpreading", 200, (40, 1000)), cfg, 5, first=7,
+    )
+    assert placed[0] == 7 and len(left) > 900, (placed, len(left))
+    assert all(0 < n < cfg.n_waves for n in placed[1:]), placed
 
 
 @pytest.mark.parametrize("name", list(WORKLOADS))
