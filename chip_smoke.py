@@ -43,7 +43,8 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    tests hold against the JAX reference) against the card's run: exact
    masks, counts and snapshot; scores within rtol = 1e-5; chosen nodes
    equal except inside a TIE_EPS near-tie.
-4b. The serial lattice on one 512-pod batch of the
+4b. The serial lattice on one 256-pod batch (SERIAL_HOLD_PODS, cut from
+   512 to keep the script inside its time limit) of the
    main path's workload at 5,000 nodes (n_cap 8192, v_cap 8192, t_cap
    64), on the card and then on the CPU from the same snapshot and tie
    noise: chosen, feasible_count and resolvable must be equal, the
@@ -98,12 +99,14 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    must be launched, waterfall_vs_e2e (the mean in-cycle span sum over the
    e2e histogram's mean) must lie in 0.95-1.05, and the p99 exemplar's
    trace id must resolve through the tracer to a finished trace.
-7. [serial]: SchedulingPodAffinity/5000 through run_benchmark with
-   use_wave=False (the serial lattice at batch 4096): the gate of phase 5
-   (5000/5000 bound, bindings checked from the API server, 0 guard trips,
-   no ERROR logged); pods/s, batches and serial-kernel seconds per batch.
-8. [preempt]: run_preemption_benchmark at a quarter of the reference's
-   defaults (PREEMPT_NODES = 250 full nodes, a burst of 250 priority-100
+7. [serial]: SchedulingPodAffinity/5000 with SERIAL_MEASURED = 1,000
+   measured pods (cut from 5,000 to keep the script inside its time
+   limit) through run_benchmark with use_wave=False (the serial lattice at
+   batch 4096): the gate of phase 5 (every measured pod bound, bindings
+   checked from the API server, 0 guard trips, no ERROR logged); pods/s,
+   batches and serial-kernel seconds per batch.
+8. [preempt]: run_preemption_benchmark at an eighth of the reference's
+   defaults (PREEMPT_NODES = 125 full nodes, a burst of 125 priority-100
    pods needing victims; cut from 1,000, whose burst can spend minutes in
    oracle_reject host walks, to keep the script inside its time limit).
    Requires every preemptor bound, vector attempts > 0, no
@@ -140,8 +143,9 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    afterwards. Prints each arm's wall and ms per pod step on the card, a
    profiled arm's device busy time and launches, and one whole
    PolicyTuner pass (every arm it assembles) on the card.
-13. [autoscaler]: run_autoscaler_benchmark(n_pods=1000) (bench.py's
-   Autoscaler/1k-pending-4-shapes). Requires 1000/1000 bound (checked
+13. [autoscaler]: run_autoscaler_benchmark(n_pods=AUTOSCALER_PODS), bench.py's
+   Autoscaler/1k-pending-4-shapes cut to 500 pods to keep the script
+   inside its time limit. Requires every pod bound (checked
    from the API server, each pod bound once), every node from the
    catalog, no ERROR logged, 0 guard trips, drift rows, rebuilds and
    device-down, and K1 launched.
@@ -182,6 +186,23 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    the (pods, placed) of the first 8 committed wave batches with the
    median placed per batch (a hard-spread burst's mode shows there).
    [time] is printed before and after, thread_report before.
+16a'. [soak]: perf/soak.run_soak (the counterpart of scripts/soak.py) on
+   the card in the reference's small, aggressive shape: SOAK_NODES = 10
+   nodes of 16 CPUs and 110 pods (scripts/repro_mismatch.py's node count,
+   a 1,100-pod capacity), the replicaset and deployment controllers,
+   hollow kubelets, and the Scheduler (use_mesh off) under SOAK_MINUTES =
+   2.5 minutes of the reference's pod, node-cordon and service churn,
+   which runs the backlog past capacity; then marking quiescence, the
+   capacity-release refill probe and the quiesce-and-audit rounds of the
+   device snapshot against the host masters, and the stage gate (finish
+   CPU <= 5 s, wall <= 60 s). Requires SOAK PASS with pending > 0 (so the
+   refill probe ran), refill_ok, unmarked 0, no device/host mismatch,
+   K1 launched, memory_allocated and the pinned host bytes within 64 MiB
+   of their 2-minute values after minute 2, snapshot_generation_retiring
+   0 at every passing audit, and the auditor's drift rows, rebuilds and
+   device-down 0. Prints the SOAK line, the samples at 2 minutes, at the
+   end of the churn and at the peak, the audits, K1's launches and the
+   card. [time] is printed after it.
 16b. [tuner]: run_tuner_benchmark() at the reference's defaults (8
    nodes, 4 rounds, the cost flip, timeout 120 s): every burst bound, no
    promotion before the flip, a converged promotion with a cost weight,
@@ -198,17 +219,19 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    the defense counters 0; pods/s with the gym on, gym passes, pass p50.
    The tuner, then the Scheduler and its Cacher, are stopped.
 16d. [kubeadm]: the whole control plane through its user entry points,
-   at SchedulingPodAffinity/5000's full size. cmd.kubeadm.init_cluster(
+   at SchedulingPodAffinity/500's size (KUBEADM_WORKLOAD: cut from
+   SchedulingPodAffinity/5000 to keep the script inside its time
+   limit). cmd.kubeadm.init_cluster(
    replication=True) with every controller but the four that rescan the
    whole store under its lock (attachdetach, nodelifecycle,
-   garbagecollector, podgc: with them the burst decays to a few pods/s at
-   this size), so not kubeadm's default controller set, and no device
+   garbagecollector, podgc: with them the burst decayed to a few pods/s
+   at 5,000 nodes), so not kubeadm's default controller set, and no device
    (the Scheduler, the reference's bare KubeSchedulerConfiguration(), on
    the card); a standby_cluster tailing its replication stream from a
    process of its own, as on a machine of its own (synced before the
-   phase writes); 3 nodes joined over the bootstrap token (signed
-   discovery, node credentials from the CSR controllers), then 5,000
-   nodes, 1,000 initial and 5,000 measured pods created through the
+   phase writes); 500 nodes and 100 initial pods, then 3 nodes joined
+   over the bootstrap token (signed discovery, node credentials from the
+   CSR controllers), then 1,000 measured pods created through the
    secured REST facade (authn, RBAC, admission, audit) by 8 admin clients
    into the WAL-backed store, fsynced and replicated, and a 100-replica
    Deployment applied through cmd.kubectl (the Deployment and ReplicaSet
@@ -218,7 +241,7 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    checked on the primary's store once [failover] has stopped it (the
    check holds the interpreter for seconds, which would stall the
    listener's acks), every pod bound exactly once (a ledger on the store's
-   bind_pods), requested <= allocatable on all 5,003 nodes and each
+   bind_pods), requested <= allocatable on all 503 nodes and each
    measured pod in a zone that held an app=bench pod. Prints time to all
    bound, the measured burst's pods/s from the first create to the last
    bind, create-call p50/p99, K1 launches, blocking readbacks and the
@@ -241,8 +264,9 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    once by the promoted Scheduler on the card (K1 launched), requested
    <= allocatable. Prints stop -> promoted and stop -> serving, the time
    to all 1,000 bound and K1 launches.
-16f. [durability]: run_durability_benchmark() at the reference's defaults
-   (50,000 records, batches of 64, 2,000 fsynced): append rates with
+16f. [durability]: run_durability_benchmark(n_records=DURABILITY_RECORDS):
+   10,000 records (the reference's 50,000, cut to keep the script inside
+   its time limit), batches of 64, 2,000 fsynced: append rates with
    fsync on and off, fsync p50/p99, recovery time. Requires the native
    WAL sink (native/walsink.cpp, built with g++) and every record
    recovered. Touches no device.
@@ -262,7 +286,7 @@ record the port logs; a fault phase fails on any ERROR it did not cause
 ([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 11, 12-16c, 16a (each workload), 16d and 16e)
+2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 11, 12-16c, 16a (each workload), 16a', 16d and 16e)
 and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
@@ -278,7 +302,7 @@ process entry (``launches_gym``, ``launches_tuner``: the serial lattice,
 (``launches_kubeadm``, ``launches_failover``), the burst on the 4-shard
 mesh (``launches_mesh``), the two [dist] workers' wave batches
 (``launches_dist``), the [suite] workloads' runs together
-(``launches_suite``),
+(``launches_suite``), the soak (``launches_soak``),
 its device time, bound, plain time, launch floor (``floor_ms``), time per
 call from Python (``call_ms``) and the parent's time (``parent_ms``, null
 without build/tree/), and ``{"ok": true, "device": {...}}``.
@@ -293,6 +317,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import gc
 import importlib.util
 import json
@@ -1071,8 +1096,14 @@ def profile_device(what: str, fn) -> dict:
     return {"wall_ms": wall_ms, "busy_ms": busy_us / 1e3, "launches": launches}
 
 
+# the serial batch held card against CPU, cut from 512 pods (its CPU run
+# took 9.9 s on an H100, PERF.md §4) so that the script, [soak] included,
+# stays inside its time limit
+SERIAL_HOLD_PODS = 256
+
+
 def serial_batch_check(mp, device) -> dict:
-    """One 512-pod batch of the main path's workload through the serial
+    """One SERIAL_HOLD_PODS-pod batch of the main path's workload through the serial
     lattice at 5,000 nodes on the card, then the same snapshot, batch and
     tie noise through the port's own CPU run (the path the tier-1 tests
     hold against the JAX reference): chosen, feasible_count and
@@ -1082,11 +1113,11 @@ def serial_batch_check(mp, device) -> dict:
     from kubernetes_tpu_torch.ops.lattice import make_schedule_batch
 
     enc = mp["enc"]
-    pods = [mp["factory"](200000 + i) for i in range(512)]
-    eb = encode_pod_batch(enc, pods, pad_to=512)
+    pods = [mp["factory"](200000 + i) for i in range(SERIAL_HOLD_PODS)]
+    eb = encode_pod_batch(enc, pods, pad_to=SERIAL_HOLD_PODS)
     snap = enc.flush()
     n = snap.valid.shape[0]
-    noise = torch.rand((512, n), generator=mp["rng"], device=device)
+    noise = torch.rand((SERIAL_HOLD_PODS, n), generator=mp["rng"], device=device)
     kern = make_schedule_batch(enc.cfg.v_cap)
     kern(snap, eb.batch, mp["weights"], noise)  # first launch: allocator warm-up
     torch.cuda.synchronize()
@@ -1104,18 +1135,18 @@ def serial_batch_check(mp, device) -> dict:
     for f in ("chosen", "feasible_count", "resolvable"):
         if not torch.equal(getattr(res, f).cpu(), getattr(ref, f)):
             bad = int((getattr(res, f).cpu() != getattr(ref, f)).sum())
-            raise AssertionError(f"[serial] 512-pod batch: {f} differs at {bad} entries")
+            raise AssertionError(f"[serial] {SERIAL_HOLD_PODS}-pod batch: {f} differs at {bad} entries")
     placed = ref.chosen >= 0
     sa, sb = res.score.cpu()[placed], ref.score[placed]
     if not torch.isfinite(sa).all():
-        raise AssertionError("[serial] 512-pod batch: non-finite scores")
+        raise AssertionError(f"[serial] {SERIAL_HOLD_PODS}-pod batch: non-finite scores")
     max_diff = float((sa - sb).abs().max()) if int(placed.sum()) else 0.0
-    log(f"[serial] one 512-pod batch at {int(snap.valid.sum())} nodes (n_cap {n}, "
+    log(f"[serial] one {SERIAL_HOLD_PODS}-pod batch at {int(snap.valid.sum())} nodes (n_cap {n}, "
         f"v_cap {enc.cfg.v_cap}, t_cap {snap.eterm_w.shape[1]}): card {card_s:.3f} s, "
         f"CPU {cpu_s:.3f} s; chosen, feasible_count, resolvable equal "
         f"({int(placed.sum())} placed); largest score difference {max_diff}")
     if int(placed.sum()) == 0:
-        raise AssertionError("[serial] 512-pod batch placed nothing")
+        raise AssertionError(f"[serial] {SERIAL_HOLD_PODS}-pod batch placed nothing")
     # the profile takes the batch's first 128 pods: the profiler's own
     # bookkeeping grows with the ~140 launches of every pod step
     sub = type(eb.batch)(*(t[:128] for t in eb.batch))
@@ -1133,20 +1164,30 @@ def serial_batch_check(mp, device) -> dict:
 # [preempt]'s nodes and preemptors, cut from the reference's 1,000: a
 # burst that spans more than one select batch can spend minutes in
 # oracle_reject host walks (ROADMAP queue 3), and the script, [suite]
-# included, must stay inside its time limit
-PREEMPT_NODES = 250
+# included, must stay inside its time limit (250 until PR 12's last cut)
+PREEMPT_NODES = 125
+
+
+# [serial]'s measured pods, cut from SchedulingPodAffinity/5000's 5,000
+# (three batches at 10.75 s each on an H100; 2,000 until PR 12's last
+# cut, PERF.md §4) so that the
+# script, [soak] included, stays inside its time limit
+SERIAL_MEASURED = 1000
 
 
 def phase_serial(device, card: str, errors: ErrorLog) -> dict:
-    """SchedulingPodAffinity/5000 through run_benchmark with use_wave=False:
-    the serial lattice at the accelerator settings (batch 4096, 5,000
-    nodes); the correctness gate of [scheduler]."""
+    """SchedulingPodAffinity/5000 with SERIAL_MEASURED measured pods through
+    run_benchmark with use_wave=False: the serial lattice at the
+    accelerator settings (batch 4096, 5,000 nodes, 1,000 initial pods);
+    the correctness gate of [scheduler]."""
     from kubernetes_tpu_torch.client.apiserver import APIServer
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.perf.harness import default_config, run_benchmark
     from kubernetes_tpu_torch.perf.workloads import WORKLOADS
 
-    wl = WORKLOADS["SchedulingPodAffinity/5000"]
+    wl = dataclasses.replace(
+        WORKLOADS["SchedulingPodAffinity/5000"], num_measured_pods=SERIAL_MEASURED
+    )
     server = APIServer()
     zero_k(fit_kernels)
     res = run_benchmark(
@@ -1155,7 +1196,8 @@ def phase_serial(device, card: str, errors: ErrorLog) -> dict:
     )
     k1, k2 = count_k(fit_kernels)
     per_batch = res.kernel_total_s / res.n_batches if res.n_batches else 0.0
-    log(f"[serial] SchedulingPodAffinity/5000, use_wave=False, through APIServer + "
+    log(f"[serial] SchedulingPodAffinity/5000 with {SERIAL_MEASURED} measured pods, "
+        f"use_wave=False, through APIServer + "
         f"Scheduler: {res.scheduled}/{res.num_measured_pods} bound in "
         f"{res.duration_s:.3f} s = {res.throughput_pods_per_s:.1f} pods/s; "
         f"{res.n_batches} batches, serial kernel {res.kernel_total_s:.3f} s = "
@@ -2606,11 +2648,17 @@ def phase_cmd(device, card: str, errors: ErrorLog,
     return {"rate": rate, "passes": passes, "pass_p50_ms": p50 * 1e3, "k1": k1, "k2": k2}
 
 
+# [autoscaler]'s pending pods, cut from bench.py's 1,000 (its burst took
+# 62.2 s, PERF.md §5) so that the script, [soak] included, stays inside
+# its time limit
+AUTOSCALER_PODS = 500
+
+
 def phase_autoscaler(device, card: str, errors: ErrorLog) -> dict:
-    """[autoscaler] run_autoscaler_benchmark(n_pods=1000): bench.py's
-    Autoscaler/1k-pending-4-shapes, 1,000 pending 500m pods against an
-    empty cluster and the four-shape catalog. Fails unless 1000/1000 are
-    bound (checked from the API server, each pod bound once), every node
+    """[autoscaler] run_autoscaler_benchmark(n_pods=AUTOSCALER_PODS):
+    bench.py's Autoscaler/1k-pending-4-shapes at half its pods, 500
+    pending 500m pods against an empty cluster and the four-shape catalog.
+    Fails unless every pod is bound (checked from the API server, each pod bound once), every node
     comes from the catalog, no ERROR is logged, guard trips, drift rows,
     rebuilds and device-down are 0 (the harness raises otherwise), and K1
     was launched."""
@@ -2622,9 +2670,9 @@ def phase_autoscaler(device, card: str, errors: ErrorLog) -> dict:
     errors.check("before autoscaler")
     server = ledger_server()
     zero_k(fit_kernels)
-    res = run_autoscaler_benchmark(n_pods=1000, device=device, server=server)
+    res = run_autoscaler_benchmark(n_pods=AUTOSCALER_PODS, device=device, server=server)
     k1, k2 = count_k(fit_kernels)
-    log(f"[autoscaler] 1000 pending 500m pods, 4 shapes: {res.scheduled}/{res.num_pods} "
+    log(f"[autoscaler] {AUTOSCALER_PODS} pending 500m pods, 4 shapes: {res.scheduled}/{res.num_pods} "
         f"bound in {res.time_to_all_bound_s:.3f} s; {res.nodes_provisioned} nodes "
         f"{json.dumps(res.nodes_by_group, sort_keys=True)}; {res.simulation_passes} "
         f"simulation passes, p50/p99 {res.simulation_p50_ms:.1f}/"
@@ -3048,8 +3096,54 @@ def phase_suite(device, card: str, errors: ErrorLog, seed: int) -> dict:
     return total
 
 
+SOAK_NODES = 10  # scripts/repro_mismatch.py's default: 1,100 pods of capacity
+SOAK_MINUTES = 2.5  # of churn: at ~9 pods/s net the backlog passes capacity
+
+
+def phase_soak(device, card: str, errors: ErrorLog, seed: int) -> dict:
+    """[soak]: perf/soak.run_soak on `device` at SOAK_NODES nodes for
+    SOAK_MINUTES of churn, its checks (the reference's, pending > 0 so the
+    refill probe ran, (a) and (b), the defense counters 0, K1 launched, no
+    ERROR); returns the K1 and K2 launches of the run."""
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.soak import peak_sample, run_soak, sample_at
+
+    errors.check("before soak")
+    zero_k(fit_kernels)
+    t0 = time.perf_counter()
+    res = run_soak(SOAK_MINUTES, n_nodes=SOAK_NODES, device=device, seed=seed)
+    k1, k2 = count_k(fit_kernels)
+    run_s = time.perf_counter() - t0
+    churn_end = next((s for s in res.samples if s["phase"] == "churn-end"), None)
+    log(f"[soak] {res.line()}")
+    log(f"[soak] {SOAK_NODES} nodes, {res.churn_s:.1f} s of churn, {run_s:.1f} s in all; "
+        f"samples at 2 minutes {json.dumps(sample_at(res.samples, 120.0), sort_keys=True)}, "
+        f"at the end of the churn {json.dumps(churn_end, sort_keys=True)}, at the peak "
+        f"{json.dumps(peak_sample(res.samples), sort_keys=True)}; memory_steady "
+        f"{res.memory_steady}, retiring_clear {res.retiring_clear}; audits "
+        f"{json.dumps(res.audits)}; defense {json.dumps(res.defense, sort_keys=True)}; "
+        f"K1 launches {k1}, K2 launches {k2}; card {card}")
+    errors.check("soak")
+    if not res.ok:
+        raise AssertionError("[soak] SOAK FAIL")
+    if res.pending <= 0:
+        raise AssertionError("[soak] the backlog never passed capacity: the refill probe did not run")
+    if res.memory_steady is not True or not res.retiring_clear:
+        raise AssertionError(f"[soak] memory_steady {res.memory_steady}, "
+                             f"retiring_clear {res.retiring_clear}")
+    if res.defense["drift_rows"] or res.defense["rebuilds"] or res.defense["device_down"]:
+        raise AssertionError("[soak] drift, a rebuild or the device latched down")
+    if k1 <= 0:
+        raise AssertionError("[soak] the Scheduler never launched K1")
+    return {"k1": k1, "k2": k2}
+
+
 # the control-plane phases' cluster and their rigs
-KUBEADM_WORKLOAD = "SchedulingPodAffinity/5000"
+# The control-plane phases' workload, cut from SchedulingPodAffinity/5000
+# (5,000 nodes, 1,000 initial and 5,000 measured pods: 250-330 s of
+# [kubeadm] and [failover] on an H100 host, PERF.md section 4) so that
+# the script, [suite] and [soak] included, stays inside its time limit
+KUBEADM_WORKLOAD = "SchedulingPodAffinity/500"
 KUBEADM_WORKERS = 3  # nodes joined over the bootstrap token
 KUBEADM_DEPLOYMENT = 100  # replicas of the Deployment applied through kubectl
 FAILOVER_PODS = 1000  # pods created through the promoted plane
@@ -3057,7 +3151,7 @@ STANDBY_LEASE_S = 2.0  # kubeadm standby's default --lease-seconds
 CREATE_THREADS = 8  # concurrent admin clients creating objects
 # The reference's node IPAM controller allocates /24 pod CIDRs from
 # 10.244.0.0/16, so it has 256 to give: past that it logs this ERROR once
-# per node. kubeadm runs it with its defaults, so at 5,000 nodes the
+# per node. kubeadm runs it with its defaults, so at 500 nodes the
 # ERROR is the reference's behaviour; the phases count it.
 CIDR_EXHAUSTED = "cluster CIDR 10.244.0.0/16 exhausted"
 # The replication layer's WARNINGs that mean the follower left the sync
@@ -3073,7 +3167,7 @@ SYNC_SET_EXITS = ("ejecting follower", "dropping follower", "ejected from sync s
 # again: attachdetach lists every pod on every pod, node or PVC event;
 # nodelifecycle lists every node, lease and pod each second;
 # garbagecollector lists every kind every 2 s; podgc counts every pod on
-# each pod event. At 5,003 nodes and 6,100 pods they hold the store's
+# each pod event. At 5,003 nodes and 6,100 pods they held the store's
 # lock and the interpreter most of the time: with all but attachdetach
 # on, the 5,000 measured pods took 852 s to bind (5.9 pods/s, create p99
 # 5.0 s). The workload mounts no volume and no node goes away; the
@@ -3355,9 +3449,9 @@ def phase_kubeadm(card: str, errors: ErrorLog) -> dict:
     that rescan the whole store (kubeadm_controllers) and no device (its
     Scheduler on the card), a standby_cluster in a process of its own
     (StandbyProcess) tailing it, synced before the phase writes,
-    KUBEADM_WORKERS nodes joined over the bootstrap token (signed
-    discovery, a node credential from the CSR controllers), then
-    KUBEADM_WORKLOAD's nodes, initial and measured pods created through
+    KUBEADM_WORKLOAD's nodes and initial pods, then KUBEADM_WORKERS nodes
+    joined over the bootstrap token (signed discovery, a node credential
+    from the CSR controllers), then its measured pods, all created through
     the secured REST facade (authn, RBAC, admission, audit) into the
     WAL-backed store, fsynced and replicated, and a
     KUBEADM_DEPLOYMENT-replica Deployment applied through cmd.kubectl, so
@@ -3409,6 +3503,20 @@ def phase_kubeadm(card: str, errors: ErrorLog) -> dict:
         conf = _json.load(open(os.path.join(h.data_dir, ADMIN_CONF)))
         url, token = conf["server"], conf["token"]
         admin = AuthRESTClient(url, token=token)
+        log(f"[kubeadm] control plane up in {init_s:.3f} s, standby process started and "
+            f"synced in {sync_s:.3f} s")
+        t0 = time.monotonic()
+        lat = create_all(url, token, "nodes", nodes)
+        log(f"[kubeadm] {len(nodes)} nodes created in {time.monotonic() - t0:.3f} s")
+        lat += create_all(url, token, "pods", init)
+        wait_bound(h.store, len(init), "kubeadm", prefix="init-")
+        setup_s = time.monotonic() - t0
+        log(f"[kubeadm] {len(init)} initial pods created and bound, {setup_s:.3f} s "
+            "after the first node create")
+        # the nodes join once the initial pods are bound: they carry no
+        # zone, so initial app=bench pods placed there would leave no zone
+        # for the measured pods' zone affinity to follow (with 100 initial
+        # pods, a burst can put them all on the three larger joined nodes)
         t0 = time.monotonic()
         for i in range(KUBEADM_WORKERS):
             join_node(h.server_url, h.bootstrap_token, f"worker-{i}", handle=h)
@@ -3419,17 +3527,7 @@ def phase_kubeadm(card: str, errors: ErrorLog) -> dict:
         join_s = time.monotonic() - t0
         if not all(creds):
             raise AssertionError(f"[kubeadm] node credentials issued: {creds}")
-
-        log(f"[kubeadm] control plane up in {init_s:.3f} s, standby process started and "
-            f"synced in {sync_s:.3f} s, {KUBEADM_WORKERS} nodes joined in {join_s:.3f} s")
-        t0 = time.monotonic()
-        lat = create_all(url, token, "nodes", nodes)
-        log(f"[kubeadm] {len(nodes)} nodes created in {time.monotonic() - t0:.3f} s")
-        lat += create_all(url, token, "pods", init)
-        wait_bound(h.store, len(init), "kubeadm", prefix="init-")
-        setup_s = time.monotonic() - t0
-        log(f"[kubeadm] {len(init)} initial pods created and bound, {setup_s:.3f} s "
-            "after the first node create")
+        log(f"[kubeadm] {KUBEADM_WORKERS} nodes joined in {join_s:.3f} s")
         k1_setup = fit_kernels.fit_mask.launches
         blocking0 = metrics.counter("scheduler_wave_readbacks_blocking_total")
         t_first = time.monotonic()
@@ -3501,7 +3599,7 @@ def phase_kubeadm(card: str, errors: ErrorLog) -> dict:
         if k1 <= 0:
             raise AssertionError("[kubeadm] the Scheduler never launched K1")
         # the bindings are checked by check_kubeadm once the primary is
-        # stopped: listing and checking 6,100 pods holds the interpreter
+        # stopped: listing and checking 1,200 pods holds the interpreter
         # for seconds, which would stall the replication listener's acks
         return {"h": h, "sb": sb, "tmp": tmp, "repl_log": repl_log,
                 "collections": collections, "k1": k1, "k2": k2,
@@ -3744,10 +3842,17 @@ def standby_main(card: str) -> int:
     return 0
 
 
+# [durability]'s records without fsync, cut from the reference's 50,000
+# (their recovery took 56.4 s, PERF.md §5) so that the script, [soak]
+# included, stays inside its time limit
+DURABILITY_RECORDS = 10_000
+
+
 def phase_durability(card: str, errors: ErrorLog) -> dict:
-    """[durability] run_durability_benchmark() at the reference's defaults
-    (50,000 records in 64-record group commits without fsync, their cold
-    recovery, 2,000 records with fsync): append rates, fsync p50/p99,
+    """[durability] run_durability_benchmark(n_records=DURABILITY_RECORDS)
+    (10,000 records in 64-record group commits without fsync, their cold
+    recovery, 2,000 records with fsync, the reference's batch and fsync
+    count): append rates, fsync p50/p99,
     recovery time. Fails unless the native group-commit sink
     (native/walsink.cpp) was built and used, and recovery found every
     record. Touches no device."""
@@ -3759,7 +3864,7 @@ def phase_durability(card: str, errors: ErrorLog) -> dict:
     # ([kubeadm]'s store) made that histogram. Start from empty metrics,
     # as the bench does in a fresh process.
     metrics.reset()
-    r = run_durability_benchmark()
+    r = run_durability_benchmark(n_records=DURABILITY_RECORDS)
     log(f"[durability] WAL, {r.n_records} records in batches of {r.batch}: appends "
         f"{r.append_nofsync_per_s:.1f}/s without fsync, {r.append_fsync_per_s:.1f}/s with "
         f"fsync (fsync p50/p99 {r.fsync_p50_ms:.3f}/{r.fsync_p99_ms:.3f} ms); recovery "
@@ -3924,9 +4029,14 @@ def main(argv=None) -> int:
     from kubernetes_tpu_torch.ops import fit_kernels
 
     errors = ErrorLog()
+
+    def after(what: str) -> None:
+        log(f"[time] {time.monotonic() - t_start:.1f} s after [{what}]")
+
     parent = build_kernels()
     phase_fit_kernel(device, parent)
     k2 = phase_least_alloc(device, parent)
+    after("K2")
 
     mp = main_path(device, args.seed)
     b = mp["batches"]
@@ -3955,50 +4065,69 @@ def main(argv=None) -> int:
 
     phase_parity(mp, device)
     serial_batch_check(mp, device)
+    after("parity")
     mesh = phase_mesh(mp, device, card, errors)
+    after("mesh")
     zero_k(fit_kernels)
     dist = phase_dist(device, card, args.seed, mesh)
     errors.check("dist")
+    after("dist")
 
     res, k1_launches, k2_launches, sched_server = phase_scheduler(device, card, errors)
     phase_audit(sched_server, device, card, errors)
+    after("audit")
     zero_k(fit_kernels)
     phase_latency(device, res.throughput_pods_per_s, errors, card)
     k1_latency, k2_latency = count_k(fit_kernels)
     log(f"[latency] K1 launches {k1_latency}, K2 launches {k2_latency}")
     if k1_latency <= 0:
         raise AssertionError("[latency] the Scheduler never launched K1")
+    after("latency")
 
     serial = phase_serial(device, card, errors)
+    after("serial")
     preempt = phase_preempt(device, card, errors)
     if preempt["k1"] <= 0:
         raise AssertionError("[preempt] the burst's wave path never launched K1")
+    after("preempt")
     standby = phase_standby(device, card, errors)
     if standby["k1"] <= 0:
         raise AssertionError("[standby] the warm-up and the promoted loop never launched K1")
+    after("standby")
     hostcb = phase_hostcb(device, card, errors)
+    after("hostcb")
     caches = cluster_caches(sched_server, device)
     zero_k(fit_kernels)
     phase_whatif(sched_server, device, card, errors, caches)
     whatif = dict(zip(("k1", "k2"), count_k(fit_kernels)))
+    after("whatif")
     zero_k(fit_kernels)
     phase_gym(caches, device, card, errors)
     gym = dict(zip(("k1", "k2"), count_k(fit_kernels)))
+    after("gym")
     del sched_server, caches
     tuner = phase_tuner(device, card, errors)
+    after("tuner")
     cmd = phase_cmd(device, card, errors)
+    after("cmd")
     autoscaler = phase_autoscaler(device, card, errors)
+    after("autoscaler")
     hetero = phase_hetero(device, card, errors)
+    after("hetero")
     defrag = phase_defrag(device, card, errors)
+    after("defrag")
     hardpair = phase_hardpair(device, card, errors)
     log(f"[time] {time.monotonic() - t_start:.1f} s before [suite]")
     thread_report("before [suite]")
     suite = phase_suite(device, card, errors, args.seed)
-    log(f"[time] {time.monotonic() - t_start:.1f} s after [suite], before [kubeadm]")
+    log(f"[time] {time.monotonic() - t_start:.1f} s after [suite]")
+    soak = phase_soak(device, card, errors, args.seed)
+    log(f"[time] {time.monotonic() - t_start:.1f} s after [soak], before [kubeadm]")
     thread_report("before [kubeadm]")
     kubeadm, failover = run_control_plane(card)
     log(f"[time] {time.monotonic() - t_start:.1f} s after [durability]")
     phase_guards(device, card, errors)
+    after("guards")
     phase_device_loss(device, card, errors)
     log(f"[time] {time.monotonic() - t_start:.1f} s in all")
 
@@ -4021,6 +4150,7 @@ def main(argv=None) -> int:
             "launches_mesh": mesh[k],
             "launches_dist": dist[k],
             "launches_suite": suite[k],
+            "launches_soak": soak[k],
         }
 
     kernels = {

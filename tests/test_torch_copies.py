@@ -421,6 +421,7 @@ def test_every_module_under_a_copied_directory_is_listed():
         "cmd/kubeadm.py",
         "cmd/apiserver.py",
         "testing/netchaos_procs.py",
+        "perf/soak.py",  # the counterpart of scripts/soak.py, not a copy
     }
     listed = set(WHOLE) | ported
     for d in ("api", "client", "runtime", "utils", "controller", "scheduler",

@@ -57,7 +57,9 @@ for new in ("parallel.sharded", "parallel.mesh", "parallel.distributed",
             "cmd.controller_manager", "cmd.cloud_controller_manager",
             "cmd.hollow_node", "testing.netchaos", "testing.netchaos_procs",
             "testing.tlsutil", "testing.diskfaults", "testing.fake_cache",
-            "testing.framework_helpers", "testing.wrappers"):
+            "testing.framework_helpers", "testing.wrappers",
+            # the soak slice's
+            "perf.soak"):
     assert pkg.__name__ + "." + new in names, new
 for name in names:
     importlib.import_module(name)
