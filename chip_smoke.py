@@ -43,13 +43,13 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    tests hold against the JAX reference) against the card's run: exact
    masks, counts and snapshot; scores within rtol = 1e-5; chosen nodes
    equal except inside a TIE_EPS near-tie.
-4b. The serial lattice on one 256-pod batch (SERIAL_HOLD_PODS, cut from
-   512 to keep the script inside its time limit) of the
+4b. The serial lattice on one 128-pod batch (SERIAL_HOLD_PODS, cut from
+   512 and then 256 to keep the script inside its time limit) of the
    main path's workload at 5,000 nodes (n_cap 8192, v_cap 8192, t_cap
    64), on the card and then on the CPU from the same snapshot and tie
    noise: chosen, feasible_count and resolvable must be equal, the
-   largest score difference is printed; the card's run on the batch's
-   first 128 pods is profiled (device busy against wall).
+   largest score difference is printed; the card's run on the batch is
+   profiled (device busy against wall).
 4c. [mesh]: node-axis sharding over 4 virtual entries of the card
    (parallel/mesh.virtual_devices: one process driving an ordered device
    list, as the reference's single controller drives its mesh), from the
@@ -99,7 +99,7 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    must be launched, waterfall_vs_e2e (the mean in-cycle span sum over the
    e2e histogram's mean) must lie in 0.95-1.05, and the p99 exemplar's
    trace id must resolve through the tracer to a finished trace.
-7. [serial]: SchedulingPodAffinity/5000 with SERIAL_MEASURED = 1,000
+7. [serial]: SchedulingPodAffinity/5000 with SERIAL_MEASURED = 500
    measured pods (cut from 5,000 to keep the script inside its time
    limit) through run_benchmark with use_wave=False (the serial lattice at
    batch 4096): the gate of phase 5 (every measured pod bound, bindings
@@ -115,6 +115,29 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    500 pods queued while it stands by, promote(), all 500 bound; the
    warm-up seconds and the promotion ms. Requires exactly one standby
    warm-up and all 500 bound, with the bindings checked.
+9b. [ha]: the leader-elected failover of tests/test_chaos_ha.py on the
+   same cluster, in a store with a bind ledger and a one-shot bind
+   refusal (ha_store) behind one shared Cacher, every replica a
+   Scheduler on the card that stands by first and a LeaderElector with
+   the reference's fast lease (1.5 s, renew 1.0 s, retry 0.2 s) whose win
+   promotes it with the lease's fence. Leader A binds 1,000 measured
+   pods; the refusal is armed and 4,096 more created; once A's
+   ride-through buffer holds parked binds A dies (its elector crashes
+   without releasing, its Scheduler stops) and the store recovers;
+   standby B takes the lease, adopts the in-flight pods from the store
+   and binds them. Then replica C stands by and B's elector is paused
+   with B's Scheduler running: once C leads, B's fenced bind of a pod no
+   profile owns must raise LeaderFenced and leave it unbound, and a
+   racing burst of 500 pods must bind once each. Requires B promoted,
+   scheduler_ha_adoptions_total{outcome="pending"} risen, the first bind
+   after the kill within one autoscaler period (5.0 s), every measured
+   pod bound exactly once on the ledger, the bindings checked, each
+   replica pre-warmed once and no full snapshot upload after its
+   bring-up, K1 launched by B's adopted waves, 0 guard trips, drift
+   rows, rebuilds and device-down, and no ERROR but the zombie's own
+   fence records. Prints kill -> promoted, -> first bind, -> all bound,
+   the ride-through depth at the kill, the adoption outcomes, fenced
+   binds by path, K1 launches per replica and the card.
 10. [audit] (right after phase 5, on its cluster: the API server's 5,000
    nodes and 6,000 bound pods, encoded on the card and on the CPU): 16
    rows of `requested` and `valid` corrupted in device state; one
@@ -136,7 +159,8 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    overlay build p50, the pass's wall, ms per pod step, and a profiled
    pass's device busy time and launches.
 12b. [gym] (on the same two caches): one tuner/scoring.build_overlay of
-   128 of SchedulingPodAffinity's pods on each, the host columns equal;
+   GYM_PODS = 64 of SchedulingPodAffinity's pods on each (cut from 128 to
+   keep the script inside its time limit), the host columns equal;
    four arms (the incumbent, `pack`, the TOPSIS arm, one perturbation)
    replayed on both with the same tie noise: chosen rows and every
    WaveOutcome field equal, the card's live generation bit-identical
@@ -144,13 +168,14 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    profiled arm's device busy time and launches, and one whole
    PolicyTuner pass (every arm it assembles) on the card.
 13. [autoscaler]: run_autoscaler_benchmark(n_pods=AUTOSCALER_PODS), bench.py's
-   Autoscaler/1k-pending-4-shapes cut to 500 pods to keep the script
+   Autoscaler/1k-pending-4-shapes cut to 250 pods to keep the script
    inside its time limit. Requires every pod bound (checked
    from the API server, each pod bound once), every node from the
    catalog, no ERROR logged, 0 guard trips, drift rows, rebuilds and
    device-down, and K1 launched.
-14. [hetero]: run_hetero_benchmark(n_pods=300): both arms bind 300/300 and
-   the cost-aware fleet is strictly cheaper.
+14. [hetero]: run_hetero_benchmark(n_pods=HETERO_PODS), 150 pods (cut
+   from 300 to keep the script inside its time limit): both arms bind
+   every pod and the cost-aware fleet is strictly cheaper.
 15. [defrag]: run_defrag_benchmark() at its defaults: every replica bound
    after, the fleet strictly tighter, any plan abort a rolled-back drift
    abort (aborts and rejections printed by reason).
@@ -265,13 +290,14 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    <= allocatable. Prints stop -> promoted and stop -> serving, the time
    to all 1,000 bound and K1 launches.
 16f. [durability]: run_durability_benchmark(n_records=DURABILITY_RECORDS):
-   10,000 records (the reference's 50,000, cut to keep the script inside
+   5,000 records (the reference's 50,000, cut to keep the script inside
    its time limit), batches of 64, 2,000 fsynced: append rates with
    fsync on and off, fsync p50/p99, recovery time. Requires the native
    WAL sink (native/walsink.cpp, built with g++) and every record
    recovered. Touches no device.
-17. [guards] and [device-loss] on a 500-node cluster (SchedulingPodAffinity's
-   nodes, 100 pre-bound pods; the host path binds a quarantined batch
+17. [guards] and [device-loss] on a 250-node cluster (SchedulingPodAffinity's
+   nodes, 50 pre-bound pods, FAULT_CLUSTER, cut from 500 and 100 to keep
+   the script inside its time limit; the host path binds a quarantined batch
    in seconds there) with the fault injector (testing/device_faults.py):
    a NaN score and a wild row quarantine their batches, K =
    device_loss_disable_after consecutive trips latch the device down; a
@@ -279,20 +305,21 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    launch (wave or serial) lost latches after K losses. Every pod bound
    exactly once, none oversubscribed, no assume leaked.
 
-The Scheduler phases (5-9, 11, 13-16e, 16a) print the auditor's passes, its skips by
+The Scheduler phases (5-9b, 11, 13-16e, 16a) print the auditor's passes, its skips by
 reason, drift rows, rebuilds and scheduler_device_down, and fail unless
 the last three are 0. Every phase but the fault phases fails on any ERROR
 record the port logs; a fault phase fails on any ERROR it did not cause
 ([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 11, 12-16c, 16a (each workload), 16a', 16d and 16e)
+2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 9b, 11, 12-16c, 16a (each workload), 16a', 16d and 16e)
 and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
 preemption, standby and host-callback runs (``launches_serial``,
 ``launches_preempt``, ``launches_standby``, ``launches_hostcb``), the
+failover's three replicas together (``launches_ha``), the
 what-if pass (``launches_whatif``: the serial lattice, no Pallas kernel
 on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
 (``launches_autoscaler``, ``launches_hetero``, ``launches_defrag``,
@@ -1097,9 +1124,9 @@ def profile_device(what: str, fn) -> dict:
 
 
 # the serial batch held card against CPU, cut from 512 pods (its CPU run
-# took 9.9 s on an H100, PERF.md §4) so that the script, [soak] included,
-# stays inside its time limit
-SERIAL_HOLD_PODS = 256
+# took 9.9 s on an H100, PERF.md §4; then 256) so that the
+# script, [soak] and [ha] included, stays inside its time limit
+SERIAL_HOLD_PODS = 128
 
 
 def serial_batch_check(mp, device) -> dict:
@@ -1169,10 +1196,10 @@ PREEMPT_NODES = 125
 
 
 # [serial]'s measured pods, cut from SchedulingPodAffinity/5000's 5,000
-# (three batches at 10.75 s each on an H100; 2,000 until PR 12's last
-# cut, PERF.md §4) so that the
-# script, [soak] included, stays inside its time limit
-SERIAL_MEASURED = 1000
+# (three batches at 10.75 s each on an H100; then 2,000, then 1,000,
+# PERF.md §4) so that the script, [soak] and [ha] included,
+# stays inside its time limit
+SERIAL_MEASURED = 500
 
 
 def phase_serial(device, card: str, errors: ErrorLog) -> dict:
@@ -1318,6 +1345,297 @@ def phase_standby(device, card: str, errors: ErrorLog) -> dict:
     return {"k1": k1, "k2": k2, "warm_s": warm_s, "promote_ms": promote_ms}
 
 
+HA_WORKLOAD = "SchedulingPodAffinity/5000"
+HA_FIRST = 1000  # measured pods the first leader binds
+HA_WAVE = 4096  # measured pods of the wave the leader dies holding: one full batch
+HA_BURST = 500  # measured pods racing the new leader and the zombie
+HA_LEASE = dict(lease_duration=1.5, renew_deadline=1.0, retry_period=0.2)
+AUTOSCALER_PERIOD_S = 5.0  # tests/test_chaos_ha.py: the first bind after a kill within it
+HA_FENCED = "rejected by the leadership fence"  # the zombie's own ERROR record
+
+
+def ha_store():
+    """An APIServer with a bind ledger (the binds it applies, per pod uid)
+    and a one-shot bind refusal, the mechanism of tests/test_chaos_pipeline.py's
+    ChaosStore.fail_next_bind: once armed, the next bind_pods raises
+    DegradedWrites before applying anything, and every bind is refused so
+    until recover(). Only binds: pod creates keep landing, so that a
+    4,096-pod wave reaches the leader whole while its binds park."""
+    from collections import defaultdict
+
+    from kubernetes_tpu_torch.client.apiserver import APIServer
+    from kubernetes_tpu_torch.runtime.consensus import DegradedWrites
+
+    class HAStore(APIServer):
+        def __init__(self):
+            super().__init__()
+            self.applied = defaultdict(int)
+            self.fail_next_bind = False
+            self.binds_degraded = False
+            self._chaos_lock = threading.Lock()
+
+        def recover(self):
+            self.binds_degraded = False
+
+        def bind_pods(self, bindings, fence=None):
+            with self._chaos_lock:
+                if self.fail_next_bind:
+                    self.fail_next_bind, self.binds_degraded = False, True
+                refused = self.binds_degraded
+            if refused:
+                raise DegradedWrites("bind refused: store degraded")
+            errs = super().bind_pods(bindings, fence=fence)
+            for b, err in zip(bindings, errs):
+                if err is None:
+                    self.applied[b.pod_uid] += 1
+            return errs
+
+    return HAStore()
+
+
+class HAReplica:
+    """One scheduler replica wired as tests/test_chaos_ha.py's _Replica and
+    cmd/scheduler.py wire it: a Scheduler on the card standing by over the
+    shared Cacher, a LeaderElector on the raw store with the reference's
+    fast lease, and the election winner promoting with the elector's
+    fence. Counts its own K1 launches (each wave launch's K1 delta, taken
+    under one lock shared by the replicas) and its full snapshot uploads
+    after its bring-up."""
+
+    launch_lock = threading.Lock()
+
+    def __init__(self, store, cacher, identity: str, device):
+        from kubernetes_tpu_torch.client.leaderelection import (
+            LeaderElectionConfig, LeaderElector)
+        from kubernetes_tpu_torch.ops import fit_kernels
+        from kubernetes_tpu_torch.perf.harness import default_config
+        from kubernetes_tpu_torch.scheduler import Scheduler
+        from kubernetes_tpu_torch.scheduler.ha import COUNTER_STANDBY_WARMUPS
+        from kubernetes_tpu_torch.utils.metrics import metrics
+
+        self.identity = identity
+        self.k1 = 0
+        self.uploads = 0
+        self.sched = Scheduler(cacher, default_config(), device=device)
+        launch, enc = self.sched._launch_wave_kernel, self.sched.cache.encoder
+        upload = enc._upload
+
+        def counted_launch(*a):
+            with HAReplica.launch_lock:
+                k0 = fit_kernels.fit_mask.launches
+                try:
+                    return launch(*a)
+                finally:
+                    self.k1 += fit_kernels.fit_mask.launches - k0
+
+        def counted_upload(masters):
+            self.uploads += 1
+            return upload(masters)
+
+        self.sched._launch_wave_kernel = counted_launch
+        enc._upload = counted_upload
+        w0 = metrics.counter(COUNTER_STANDBY_WARMUPS)
+        t0 = time.perf_counter()
+        self.sched.start_standby(identity=identity)
+        self.warm_s = time.perf_counter() - t0
+        self.warmups = metrics.counter(COUNTER_STANDBY_WARMUPS) - w0
+        self.uploads_standing = self.uploads
+        self.promoted = threading.Event()
+        self.promoted_at = None
+
+        def on_started():
+            self.sched.promote(fence=self.elector.fence())
+            self.promoted_at = time.monotonic()
+            self.promoted.set()
+
+        self.elector = LeaderElector(
+            store, LeaderElectionConfig(identity=identity, **HA_LEASE),
+            on_started_leading=on_started,
+        )
+        self.thread = threading.Thread(
+            target=self.elector.run, daemon=True, name=f"elector-{identity}")
+        self.thread.start()
+
+    def stop(self) -> None:
+        self.elector.stop()
+        self.sched.stop()
+        self.thread.join(timeout=10.0)
+
+
+def wait_for(cond, timeout: float, what: str, period: float = 0.005) -> float:
+    """Poll cond until it holds; returns the time it first held
+    (time.monotonic()); fails the run past `timeout` seconds."""
+    deadline = time.monotonic() + timeout
+    while True:
+        if cond():
+            return time.monotonic()
+        if time.monotonic() > deadline:
+            raise AssertionError(f"[ha] timed out after {timeout} s waiting for {what}")
+        time.sleep(period)
+
+
+def phase_ha(device, card: str, errors: ErrorLog, workload: str = HA_WORKLOAD,
+             first: int = HA_FIRST, wave: int = HA_WAVE, burst: int = HA_BURST) -> dict:
+    """The Scheduler's leader-elected failover, as tests/test_chaos_ha.py
+    runs it, on `workload`'s cluster (nodes and initial pods bound, as
+    [standby] builds it) in a bind-ledger store (ha_store) behind one
+    shared Cacher. Replica A leads and binds `first` measured pods; the
+    bind refusal is armed and `wave` more pods created; once A's
+    ride-through buffer holds parked binds, A dies (elector.crash(),
+    Scheduler stopped), the store recovers, and standby B takes the
+    lease, adopts the in-flight pods from the store and binds them. Then
+    replica C stands by and B's elector is paused with B's Scheduler
+    running: once C leads, B's fenced bind of a pod no profile owns must
+    raise LeaderFenced and leave it unbound, and a racing burst of
+    `burst` pods must bind once each. Fails unless B promoted, adoptions
+    {pending} rose, the first bind after the kill came within one
+    autoscaler period (5.0 s), every measured pod was bound exactly once
+    on the ledger, check_bindings passes, each replica pre-warmed once and
+    re-uploaded no snapshot after its bring-up, K1 launched by B's
+    adopted waves (on the card), and 0 guard trips, drift rows, rebuilds
+    and device-down."""
+    from kubernetes_tpu_torch.api import objects as v1
+    from kubernetes_tpu_torch.apiserver.cacher import Cacher
+    from kubernetes_tpu_torch.client.apiserver import LeaderFenced
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.scheduler.ha import COUNTER_ADOPTIONS, COUNTER_FENCED_BINDS
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    nodes, init_pods, factory = build_workload(WORKLOADS[workload])
+    store = ha_store()
+    for n in nodes:
+        store.create("nodes", n)
+    for i, p in enumerate(init_pods):
+        p.spec.node_name = nodes[(7 * i) % len(nodes)].metadata.name
+        store.create("pods", p)
+    cacher = Cacher(store)
+    metrics.reset()
+    zero_k(fit_kernels)
+    measured = 0
+
+    def create(n: int) -> None:
+        nonlocal measured
+        for i in range(measured, measured + n):
+            store.create("pods", factory(i))
+        measured += n
+
+    def applied() -> int:
+        return sum(store.applied.values())
+
+    def adoptions() -> dict:
+        return {o: metrics.counter(COUNTER_ADOPTIONS, {"outcome": o})
+                for o in ("bound", "pending", "gone")}
+
+    def measured_bound() -> int:
+        return store.count(
+            "pods", lambda p: p.metadata.name.startswith("pod-") and bool(p.spec.node_name))
+
+    replicas = []
+    try:
+        a = HAReplica(store, cacher, "ha-a", device)
+        replicas.append(a)
+        wait_for(a.promoted.is_set, 30, "replica A to lead")
+        b = HAReplica(store, cacher, "ha-b", device)
+        replicas.append(b)
+        create(first)
+        wait_for(lambda: measured_bound() == first, 120, f"A to bind {first} pods")
+        # mid-wave: the next bind is refused (degraded store), so A parks
+        # the wave assumed-but-unbound, then dies before it can drain
+        store.fail_next_bind = True
+        create(wave)
+        wait_for(lambda: a.sched._ridethrough.depth > 0, 60, "A to park the wave")
+        depth = a.sched._ridethrough.depth
+        bound_at_kill, applied_at_kill = measured_bound(), applied()
+        adopt0, k1_at_kill = adoptions(), b.k1
+        t_kill = time.monotonic()
+        a.elector.crash()
+        a.sched.stop()
+        store.recover()
+        wait_for(b.promoted.is_set, 30, "B to promote")
+        t_first = wait_for(lambda: applied() > applied_at_kill, 30, "a bind after the kill")
+        t_all = wait_for(lambda: measured_bound() == first + wave, 120,
+                         "B to bind every measured pod")
+        adopted = {k: v - adopt0[k] for k, v in adoptions().items()}
+        k1_after_kill = b.k1 - k1_at_kill
+
+        # the zombie: C stands by, B's elector pauses while B's Scheduler runs
+        c = HAReplica(store, cacher, "ha-c", device)
+        replicas.append(c)
+        b.elector.crash()
+        wait_for(c.promoted.is_set, 30, "C to take the lease")
+        zp = store.create("pods", v1.Pod(
+            metadata=v1.ObjectMeta(name="zombie-target"),
+            spec=v1.PodSpec(scheduler_name="nobody",
+                            containers=[v1.Container(requests={"cpu": "100m"})])))
+        binding = v1.Binding(pod_name="zombie-target", pod_namespace="default",
+                             pod_uid=zp.metadata.uid, target_node=nodes[0].metadata.name)
+        try:
+            b.sched._bind_pods_fenced([binding])
+            raise AssertionError("[ha] the zombie's bind was not fenced")
+        except LeaderFenced:
+            pass
+        if store.get("pods", "default", "zombie-target").spec.node_name:
+            raise AssertionError("[ha] a fenced bind reached the store")
+        store.delete("pods", "default", "zombie-target")
+        t_burst = time.monotonic()
+        create(burst)
+        t_race = wait_for(lambda: measured_bound() == first + wave + burst, 120,
+                          "the racing burst to bind")
+        fenced = {labels.get("path", ""): v for _n, labels, v in
+                  metrics.snapshot_counters(COUNTER_FENCED_BINDS)}
+        lease = store.get("leases", "kube-system", "kube-scheduler")
+    finally:
+        for r in replicas:
+            r.stop()
+        cacher.stop()
+    k1, k2 = count_k(fit_kernels)
+    fenced_records = errors.expect("ha", (HA_FENCED,))
+    trips = sum(v for _n, _l, v in metrics.snapshot_counters("kernel_guard_trips_total"))
+    d = defense_report("ha", card, sched=b.sched)
+    down = [r.identity for r in replicas if r.sched._device_down]
+    uids = {p.metadata.uid for p in store.list("pods")[0] if p.metadata.name.startswith("pod-")}
+    twice = {u: n for u, n in store.applied.items() if n != 1}
+    per = {r.identity: r.k1 for r in replicas}
+    log(f"[ha] {workload}'s cluster ({len(nodes)} nodes, {len(init_pods)} initial pods) "
+        f"behind one Cacher; A bound {first}, then died holding {depth} parked binds of "
+        f"a {wave}-pod wave ({bound_at_kill} measured bound at the kill); kill -> B promoted "
+        f"{(b.promoted_at - t_kill) * 1e3:.1f} ms, -> first bind "
+        f"{(t_first - t_kill) * 1e3:.1f} ms, -> all {first + wave} bound "
+        f"{t_all - t_kill:.3f} s; adoptions {json.dumps(adopted, sort_keys=True)}; "
+        f"zombie B fenced (LeaderFenced on its direct bind), C led after "
+        f"{(c.promoted_at - t_kill):.3f} s since the kill; the {burst}-pod race bound in "
+        f"{t_race - t_burst:.3f} s; fenced binds by path {json.dumps(fenced, sort_keys=True)} "
+        f"({fenced_records} fence ERROR records); lease held by {lease.holder_identity} at "
+        f"transition {lease.lease_transitions}; K1 launches per replica "
+        f"{json.dumps(per, sort_keys=True)} ({k1} in all, "
+        f"B's adopted waves {k1_after_kill}), K2 {k2}; warm-ups {[r.warmups for r in replicas]}, start_standby "
+        f"{[round(r.warm_s, 3) for r in replicas]} s, full uploads after bring-up "
+        f"{[r.uploads - r.uploads_standing for r in replicas]}; guard trips {trips:.0f}; "
+        f"card {card}")
+    if not b.promoted.is_set() or adopted["pending"] <= 0:
+        raise AssertionError(f"[ha] B promoted {b.promoted.is_set()}, adoptions {adopted}")
+    if t_first - t_kill >= AUTOSCALER_PERIOD_S:
+        raise AssertionError(f"[ha] first bind {t_first - t_kill:.3f} s after the kill")
+    if len(uids) != first + wave + burst or set(store.applied) != uids or twice:
+        raise AssertionError(
+            f"[ha] {len(uids)} measured pods, {len(store.applied)} on the ledger, "
+            f"{len(twice)} not bound exactly once")
+    check_bindings(store, first + wave + burst, "ha")
+    if any(r.warmups != 1 for r in replicas) or any(r.uploads != r.uploads_standing
+                                                      for r in replicas):
+        raise AssertionError("[ha] a replica pre-warmed other than once or re-uploaded "
+                             "its snapshot after its bring-up")
+    if k1_after_kill <= 0 and device.type == "cuda":
+        raise AssertionError("[ha] B's promoted waves never launched K1")
+    if trips or down or d["drift_rows"] or d["rebuilds"]:
+        raise AssertionError(f"[ha] guard trips {trips}, device down {down}")
+    return {"k1": k1, "k2": k2, "depth": depth, "adopted": adopted,
+            "promote_ms": (b.promoted_at - t_kill) * 1e3,
+            "first_bind_ms": (t_first - t_kill) * 1e3, "all_bound_s": t_all - t_kill,
+            "per_replica": per, "fenced": fenced}
+
+
 def phase_audit(server, device, card: str, errors: ErrorLog) -> dict:
     """[audit] on the [scheduler] phase's cluster after its burst (5,000
     nodes and the 6,000 pods the API server holds bound): the snapshot
@@ -1423,10 +1741,11 @@ def ledger_server():
     return LedgerServer()
 
 
-# the fault phases' cluster: SchedulingPodAffinity's 500 nodes with its 100
-# initial pods pre-bound, small enough that a batch quarantined to the host
-# filter chain binds in seconds
-FAULT_CLUSTER = ("SchedulingPodAffinity", 500, 100)
+# the fault phases' cluster: SchedulingPodAffinity's nodes with initial
+# pods pre-bound, small enough that a batch quarantined to the host filter
+# chain binds in seconds (cut from 500 nodes and 100 initial pods,
+# PERF.md §4, so that the script stays inside its time limit)
+FAULT_CLUSTER = ("SchedulingPodAffinity", 250, 50)
 
 
 def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds,
@@ -1559,7 +1878,7 @@ LOSS_ERRORS = (
 
 
 def phase_guards(device, card: str, errors: ErrorLog) -> dict:
-    """[guards] on the fault cluster (500 nodes, 100 pre-bound pods):
+    """[guards] on the fault cluster (250 nodes, 50 pre-bound pods):
     NaN scores on the first trailing (score) readback and a wild chosen
     row on the second index readback, 100 + 100 pods: both trips counted
     by reason, the wild batch quarantined to the host path, the device not
@@ -2411,10 +2730,15 @@ class GymHost:
         pass
 
 
+# [gym]'s pods an arm replays, cut from 128 (PERF.md §4) so that
+# the script stays inside its time limit
+GYM_PODS = 64
+
+
 def phase_gym(caches: dict, device, card: str, errors: ErrorLog) -> dict:
     """[gym] on the [scheduler] phase's cluster (caches: cluster_caches of
     its API server, 5,000 nodes and 6,000 bound pods, on the card and on
-    the CPU). One build_overlay of 128 of SchedulingPodAffinity's pods on
+    the CPU). One build_overlay of GYM_PODS of SchedulingPodAffinity's pods on
     each: the host columns equal. Then four arms (the incumbent, `pack`,
     the TOPSIS arm, one perturbation) replayed on both with the same tie
     noise: every arm's chosen rows and WaveOutcome equal, and the card's
@@ -2435,7 +2759,7 @@ def phase_gym(caches: dict, device, card: str, errors: ErrorLog) -> dict:
 
     errors.check("before gym")
     _n, _i, factory = build_workload(WORKLOADS["SchedulingPodAffinity/5000"])
-    pods = [factory(400000 + i) for i in range(128)]
+    pods = [factory(400000 + i) for i in range(GYM_PODS)]
     enc = caches["card"].encoder
     live = enc._device
     before = [t.clone() for t in live]
@@ -2649,9 +2973,13 @@ def phase_cmd(device, card: str, errors: ErrorLog,
 
 
 # [autoscaler]'s pending pods, cut from bench.py's 1,000 (its burst took
-# 62.2 s, PERF.md §5) so that the script, [soak] included, stays inside
-# its time limit
-AUTOSCALER_PODS = 500
+# 62.2 s, PERF.md §5; then 500) so that the script, [soak]
+# and [ha] included, stays inside its time limit
+AUTOSCALER_PODS = 250
+
+# [hetero]'s pending pods, cut from 300 (PERF.md §4) for the
+# same limit
+HETERO_PODS = 150
 
 
 def phase_autoscaler(device, card: str, errors: ErrorLog) -> dict:
@@ -2697,16 +3025,16 @@ def phase_autoscaler(device, card: str, errors: ErrorLog) -> dict:
 
 
 def phase_hetero(device, card: str, errors: ErrorLog) -> dict:
-    """[hetero] run_hetero_benchmark(n_pods=300): the same pending burst
-    autoscaled cost-aware and cost-blind on the mixed-cost catalog. Fails
-    unless both arms bind 300/300 and the cost-aware fleet is strictly
-    cheaper, with no ERROR logged."""
+    """[hetero] run_hetero_benchmark(n_pods=HETERO_PODS): the same pending
+    burst autoscaled cost-aware and cost-blind on the mixed-cost catalog.
+    Fails unless both arms bind every pod and the cost-aware fleet is
+    strictly cheaper, with no ERROR logged."""
     from kubernetes_tpu_torch.ops import fit_kernels
     from kubernetes_tpu_torch.perf.harness import run_hetero_benchmark
 
     errors.check("before hetero")
     zero_k(fit_kernels)
-    res = run_hetero_benchmark(n_pods=300, device=device)
+    res = run_hetero_benchmark(n_pods=HETERO_PODS, device=device)
     k1, k2 = count_k(fit_kernels)
     log(f"[hetero] {res.num_pods} pods, {res.num_shapes} shapes: cost-aware "
         f"{res.cost_aware_scheduled} bound, ${res.cost_aware_fleet_per_hour}/h "
@@ -3843,14 +4171,14 @@ def standby_main(card: str) -> int:
 
 
 # [durability]'s records without fsync, cut from the reference's 50,000
-# (their recovery took 56.4 s, PERF.md §5) so that the script, [soak]
-# included, stays inside its time limit
-DURABILITY_RECORDS = 10_000
+# (their recovery took 56.4 s, PERF.md §5; then 10,000) so
+# that the script, [soak] and [ha] included, stays inside its time limit
+DURABILITY_RECORDS = 5_000
 
 
 def phase_durability(card: str, errors: ErrorLog) -> dict:
     """[durability] run_durability_benchmark(n_records=DURABILITY_RECORDS)
-    (10,000 records in 64-record group commits without fsync, their cold
+    (5,000 records in 64-record group commits without fsync, their cold
     recovery, 2,000 records with fsync, the reference's batch and fsync
     count): append rates, fsync p50/p99,
     recovery time. Fails unless the native group-commit sink
@@ -4094,9 +4422,12 @@ def main(argv=None) -> int:
     if standby["k1"] <= 0:
         raise AssertionError("[standby] the warm-up and the promoted loop never launched K1")
     after("standby")
+    ha = phase_ha(device, card, errors)
+    after("ha")
     hostcb = phase_hostcb(device, card, errors)
     after("hostcb")
     caches = cluster_caches(sched_server, device)
+    after("caches")
     zero_k(fit_kernels)
     phase_whatif(sched_server, device, card, errors, caches)
     whatif = dict(zip(("k1", "k2"), count_k(fit_kernels)))
@@ -4136,6 +4467,7 @@ def main(argv=None) -> int:
             "launches_serial": serial[k],
             "launches_preempt": preempt[k],
             "launches_standby": standby[k],
+            "launches_ha": ha[k],
             "launches_hostcb": hostcb[k],
             "launches_whatif": whatif[k],
             "launches_autoscaler": autoscaler[k],

@@ -47,6 +47,7 @@ tests/test_torch_wavelattice.py where the chosen nodes agree.
 
 import collections
 import importlib
+import threading
 import time
 
 import jax
@@ -233,6 +234,78 @@ def test_scheduler_matches_reference_batch_by_batch(name, batch, m_cand, monkeyp
     batch_parity(name, batch, m_cand, monkeypatch)
 
 
+@pytest.mark.parametrize("pod_first", [False, True])
+def test_ext_generation_of_informer_order_matches_reference(pod_first):
+    """Why (a) compares launch generations from a common base: a scheduled
+    pod delivered before its node is parked and replayed when the node
+    arrives, and the replay stamps no ext_generation. The same node and pod
+    give 2 in one informer order and 1 in the other, in both packages
+    alike; so two Schedulers whose pods and nodes informers interleave
+    differently at bring-up start from different counts (the
+    TopologySpreading case's "launch_gen 70 != 64" under a loaded run)."""
+    from kubernetes_tpu.api import objects as ref_v1
+    from kubernetes_tpu.ops.encoding import SnapshotEncoder as RefEncoder
+    from kubernetes_tpu.scheduler.cache.cache import SchedulerCache as RefCache
+    from kubernetes_tpu_torch.ops.encoding import SnapshotEncoder
+    from kubernetes_tpu_torch.scheduler.cache.cache import SchedulerCache
+
+    got = []
+    for o, cache in ((ref_v1, RefCache(encoder=RefEncoder())),
+                     (v1, SchedulerCache(encoder=SnapshotEncoder(device="cpu")))):
+        node = o.Node(
+            metadata=o.ObjectMeta(name="n0", namespace=""),
+            status=o.NodeStatus(allocatable={"cpu": "8", "memory": "32Gi", "pods": 110}),
+        )
+        pod = o.Pod(
+            metadata=o.ObjectMeta(name="p0"),
+            spec=o.PodSpec(node_name="n0", containers=[o.Container(requests={"cpu": "1"})]),
+        )
+        for add in ((lambda: cache.add_pod(pod), lambda: cache.add_node(node)) if pod_first
+                    else (lambda: cache.add_node(node), lambda: cache.add_pod(pod))):
+            add()
+        got.append((cache._ext_generation, cache.pod_count()))
+    assert got[0] == got[1] == ((1, 1) if pod_first else (2, 1))
+
+
+@pytest.mark.parametrize("batch,m_cand", [(16, 16), (512, 64)])
+def test_batch_parity_holds_when_informers_lag(batch, m_cand, monkeypatch):
+    """(a) on TopologySpreading with both packages' informer handlers, API
+    server binds and pipeline resolves delayed at random (seeded), as a
+    loaded machine delays them: the pods and nodes informers then
+    interleave differently on the two sides at bring-up. Every batch, bind
+    and recorded wave must still be equal (the waves' launch generations
+    counted from _ext_generation_base)."""
+    import random
+
+    from kubernetes_tpu.client import apiserver as ref_apiserver
+    from kubernetes_tpu.client import informers as ref_informers
+    from kubernetes_tpu_torch.client import apiserver as port_apiserver
+    from kubernetes_tpu_torch.client import informers as port_informers
+
+    rng, rng_lock = random.Random(batch), threading.Lock()
+
+    def lag(hi):
+        with rng_lock:
+            d = rng.uniform(0, hi) if rng.random() < 0.3 else 0.0
+        time.sleep(d)
+
+    def delayed(real, hi):
+        def call(*a, **k):
+            lag(hi)
+            return real(*a, **k)
+        return call
+
+    for mod in (ref_apiserver, port_apiserver):
+        monkeypatch.setattr(mod.APIServer, "bind_pods", delayed(mod.APIServer.bind_pods, 0.05))
+    for mod in (ref_informers, port_informers):
+        for hook in ("on_add", "on_update", "on_delete"):
+            monkeypatch.setattr(mod._FuncHandler, hook, delayed(getattr(mod._FuncHandler, hook), 0.02))
+    for mod in (ref_sched_mod, port_sched_mod):
+        monkeypatch.setattr(mod.Scheduler, "_resolve_pending",
+                            delayed(mod.Scheduler._resolve_pending, 0.03))
+    batch_parity("TopologySpreading", batch, m_cand, monkeypatch)
+
+
 def batch_parity(name, batch, m_cand, monkeypatch, mesh_devices=None, **settings):
     """The body of (a) for one workload and bucket configuration, both
     Schedulers also given `settings` (the port's also `mesh_devices`; with
@@ -302,6 +375,7 @@ def batch_parity(name, batch, m_cand, monkeypatch, mesh_devices=None, **settings
                 and s.cache.pod_count() == n_init,
                 30, "the informers to queue every pod",
             )
+        gen0 = _ext_generation_base(ref, port, n_init)
         batches, ties = 0, 0
         while True:
             ref_pis = ref.queue.pop_batch(batch, timeout=0.0)
@@ -355,7 +429,7 @@ def batch_parity(name, batch, m_cand, monkeypatch, mesh_devices=None, **settings
             s._drain_trailing(block=True)
         # batch 16 takes at least three batches; batch 512 takes one or two
         assert batches >= (3 if batch < len(pods) else 1)
-        assert_same_waves(*rings, "wave", placements=ties == 0)
+        assert_same_waves(*rings, "wave", placements=ties == 0, gen0=gen0)
         assert len(_bound(server)) == len(pods) + n_init
         assert not port._trailing and not port._pending
         assert _counter_sum("kernel_guard_trips_total") == 0
@@ -375,10 +449,27 @@ def _attach_wave_rings(ref, port):
     return ref.wave_recorder, port.wave_recorder
 
 
-def assert_same_waves(ref_ring, port_ring, path, placements=True):
+def _ext_generation_base(ref, port, n_init):
+    """Each cache's ext_generation once both sides hold every node and
+    initial pod: the base their waves' launch generations are compared
+    from. A bring-up's own count is not comparable across the two
+    processes' informers: an initial pod that the pods informer delivers
+    before the nodes informer has delivered its node is parked and
+    replayed with the node unstamped (SchedulerCache.add_node), so each
+    side counts one per node plus one per initial pod that came after
+    its node, in whatever order its two informer threads ran."""
+    base = (ref.cache._ext_generation, port.cache._ext_generation)
+    n_nodes = port.cache.node_count
+    for b in base:
+        assert n_nodes <= b <= n_nodes + n_init, base
+    return base
+
+
+def assert_same_waves(ref_ring, port_ring, path, placements=True, gen0=(0, 0)):
     """The two Schedulers recorded the same waves: pod names, launch
     weights, production placements (unless a near-tie was chosen), path
-    and launch generation. The port's ring holds no device tensor."""
+    and launch generation, counted from each side's `gen0`
+    (_ext_generation_base). The port's ring holds no device tensor."""
     ref_recs, port_recs = ref_ring.snapshot(), port_ring.snapshot()
     assert len(port_recs) == len(ref_recs) > 0
     for i, (r, p) in enumerate(zip(ref_recs, port_recs)):
@@ -387,7 +478,8 @@ def assert_same_waves(ref_ring, port_ring, path, placements=True):
         np.testing.assert_array_equal(p.weights, r.weights)
         if placements:
             assert p.placements == r.placements, i
-        assert (p.path, p.launch_gen, p.seq) == (path, r.launch_gen, r.seq), i
+        assert (p.path, p.launch_gen - gen0[1], p.seq) == (
+            path, r.launch_gen - gen0[0], r.seq), i
         assert r.path == path
         key = p.rng_key
         assert not (isinstance(key, torch.Tensor) and key.device.type != "cpu")
@@ -1202,6 +1294,7 @@ def serial_parity(name, mesh_devices=None, **settings):
                 and s.cache.pod_count() == n_init,
                 30, "the informers to queue every pod",
             )
+        gen0 = _ext_generation_base(ref, port, n_init)
         batches = 0
         while True:
             ref_pis = ref.queue.pop_batch(16, timeout=0.0)
@@ -1232,7 +1325,7 @@ def serial_parity(name, mesh_devices=None, **settings):
         assert batches == -(-len(pods) // 16)
         assert len(_bound(server)) == len(pods) + n_init
         assert not keys and not port._trailing
-        assert_same_waves(*rings, "serial")
+        assert_same_waves(*rings, "serial", gen0=gen0)
         assert _counter_sum("kernel_guard_trips_total") == 0
     finally:
         ref.stop()
