@@ -29,6 +29,48 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    like K1 (floor, per call, parent in turns) at [16, 8192, 6],
    [16, 5001, 6] and [8, 5001, 12]. No path of the system runs K2: it is
    a standalone kernel, as in the reference.
+1c. [nodeloss] (the first Scheduler phase, while the interpreter's heap
+   is small): node loss as tests/test_chaos_pipeline.py's kubelet cases
+   run it, at SchedulingBasic/5000's 5,000 nodes in 10 zones (all of
+   them rows of the snapshot on the card), the 2,500 of zone-0 .. zone-4
+   lease-managed (a kubelet each in one NodeAgentPool, heartbeat 1.0 s,
+   and a node lease; cut from all 5,000, whose heartbeat and lifecycle
+   passes reached 24 s in one interpreter, past the grace period), in a
+   bind-ledger store that keeps 20,000 events a kind for watch resumption,
+   the Scheduler on the card with the reference's settings, the
+   replicaset controller's reconcile (its workers, fed by its
+   ReplicaSets' writes and a resync every resync_period: the copied
+   controller's watch loop takes one pod event a turn) and 10 ReplicaSets of 500 of
+   the workload's pods, each in a namespace of its own: rs-0 tolerating
+   every taint, rs-1 the unreachable taint for 3 s, rs-2 .. rs-9 nothing.
+   Once all are bound the node-lifecycle controller starts (monitor
+   period 0.5 s, grace 10.0 s, raised from 4.0 s because the heartbeat
+   pass over the kubelets reaches 5 s; eviction timeout 1.0 s, eviction
+   limiter 100 qps); at one instant zone-3's 500 kubelets stop and an
+   11th ReplicaSet of 500 is created, whose waves run while the taints
+   land. Once every replacement is bound, 100 of the dead nodes' kubelets
+   restart; once their taints are lifted, the 11th ReplicaSet grows by
+   500. Requires every killed node to carry both lifecycle taints in the
+   API server and in its rows on the card (taint_key, taint_val,
+   taint_effect fetched by fetch_device_rows, equal to the host encoding
+   and the masters), no other node ever tainted, the partial-disruption
+   gauge 0 at every pass, every rs-1 .. rs-9 pod of a killed node evicted
+   (rs-1's no sooner than 3 s after its node went NotReady) and every
+   rs-0 pod kept in place, node_lifecycle_evictions_total risen by the
+   pods deleted from killed nodes, every ReplicaSet back at its replicas,
+   all bound, none on a taint it does not tolerate (from the API server),
+   requested <= allocatable, every bind applied once, the revived rows
+   untainted on the card and one of the last 500 pods on a revived node,
+   K1 launched after the kill, one 4096-pod replacement batch on the
+   tainted snapshot (encoded afresh from the API server) held card
+   against CPU (hold_batch) with no pod on a killed node it does not
+   tolerate, 0 guard trips, drift rows, rebuilds and device-down, an
+   auditor pass and no ERROR. Prints kill -> all tainted, -> first
+   eviction, -> all evicted, -> every replacement bound, evictions and
+   deferred evictions, the lifecycle and heartbeat pass times (p50, max),
+   the wave batches after the kill, K1 launches, the pods bound to revived
+   nodes, the full collections and the card (each pass's timeline and
+   the threads' CPU when a check fails).
 2. The main path: SchedulingPodAffinity/5000 (5,000 nodes, 1,000 initial
    pods, 5,000 measured pods with required zone pod-affinity; random
    choices from --seed) encoded on the card and scheduled batch by batch
@@ -295,7 +337,7 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    fsync on and off, fsync p50/p99, recovery time. Requires the native
    WAL sink (native/walsink.cpp, built with g++) and every record
    recovered. Touches no device.
-17. [guards] and [device-loss] on a 250-node cluster (SchedulingPodAffinity's
+17. [guards] and [device-loss] on a 260-node cluster (SchedulingPodAffinity's
    nodes, 50 pre-bound pods, FAULT_CLUSTER, cut from 500 and 100 to keep
    the script inside its time limit; the host path binds a quarantined batch
    in seconds there) with the fault injector (testing/device_faults.py):
@@ -305,21 +347,22 @@ together, into build/kernels/. Phases (any failure exits non-zero):
    launch (wave or serial) lost latches after K losses. Every pod bound
    exactly once, none oversubscribed, no assume leaked.
 
-The Scheduler phases (5-9b, 11, 13-16e, 16a) print the auditor's passes, its skips by
+The Scheduler phases (1c, 5-9b, 11, 13-16e, 16a) print the auditor's passes, its skips by
 reason, drift rows, rebuilds and scheduler_device_down, and fail unless
 the last three are 0. Every phase but the fault phases fails on any ERROR
 record the port logs; a fault phase fails on any ERROR it did not cause
 ([kubeadm] and [failover] allow only the ones they name).
 
 The kernel launch counts are set to 0 just before each main path (phases
-2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 9b, 11, 12-16c, 16a (each workload), 16a', 16d and 16e)
+1c (and again at its kill), 2, 4c, 4d (in each worker), 5, 6, 7, 8, 9, 9b, 11, 12-16c, 16a (each workload), 16a', 16d and 16e)
 and read just after. The last lines are the
 card's name and power limit (nvidia-smi), a ``{"kernels": [...]}`` JSON
 line with each kernel's launches on the Scheduler's burst run
 (``launches``), the latency run (``launches_latency``), the serial,
 preemption, standby and host-callback runs (``launches_serial``,
 ``launches_preempt``, ``launches_standby``, ``launches_hostcb``), the
-failover's three replicas together (``launches_ha``), the
+failover's three replicas together (``launches_ha``), the node loss
+(``launches_nodeloss``), the
 what-if pass (``launches_whatif``: the serial lattice, no Pallas kernel
 on it), the autoscaler, heterogeneity, defragmentation and hard-pair runs
 (``launches_autoscaler``, ``launches_hetero``, ``launches_defrag``,
@@ -1067,6 +1110,7 @@ def hold_batch(mp, device, what: str) -> dict:
         "pods": len(pods), "placed": int(r_fit.placed.sum()), "ties": ties,
         "cpu_s": cpu_s, "n_waves": prep.n_waves, "host_lane": int(prep.eb.fallback.sum()),
         "kern": kern_fit, "snap": snap, "prep": prep, "noise": noise, "clone": clone,
+        "batch": pods, "res": r_fit,
     }
 
 
@@ -1462,15 +1506,19 @@ class HAReplica:
         self.thread.join(timeout=10.0)
 
 
-def wait_for(cond, timeout: float, what: str, period: float = 0.005) -> float:
-    """Poll cond until it holds; returns the time it first held
-    (time.monotonic()); fails the run past `timeout` seconds."""
+def wait_for(cond, timeout: float, what: str, period: float = 0.005,
+             phase: str = "ha", clock=time.monotonic, report=None) -> float:
+    """Poll cond until it holds; returns the time it first held (on
+    `clock`); fails the run past `timeout` seconds, after calling `report`
+    (when given) to print the state it was waiting on."""
     deadline = time.monotonic() + timeout
     while True:
         if cond():
-            return time.monotonic()
+            return clock()
         if time.monotonic() > deadline:
-            raise AssertionError(f"[ha] timed out after {timeout} s waiting for {what}")
+            if report is not None:
+                report()
+            raise AssertionError(f"[{phase}] timed out after {timeout} s waiting for {what}")
         time.sleep(period)
 
 
@@ -1636,6 +1684,582 @@ def phase_ha(device, card: str, errors: ErrorLog, workload: str = HA_WORKLOAD,
             "per_replica": per, "fenced": fenced}
 
 
+# [nodeloss]: a zone's kubelets die at SchedulingBasic/5000's size
+NODELOSS_WORKLOAD = "SchedulingBasic/5000"  # its 5,000 nodes in 10 zones and its pod template
+NODELOSS_SETS = 10  # ReplicaSets, rs-0 .. rs-9, each of NODELOSS_REPLICAS pods
+NODELOSS_REPLICAS = 500
+NODELOSS_ZONE = "zone-3"  # whose 500 kubelets stop at once
+# zones whose nodes are lease-managed (a kubelet and a node lease each):
+# zone-0 .. zone-4, 2,500 of the 5,000 nodes; the other 2,500 are static
+# nodes with no lease. Cut from all 10 zones: at 5,000 lease-managed nodes
+# one interpreter's heartbeat and lifecycle passes reach 24 s, past the
+# 10 s grace, and the partial-disruption halt trips (PERF.md section 4,
+# ROADMAP queue 3)
+NODELOSS_MANAGED_ZONES = 5
+NODELOSS_REVIVE = 100  # of its nodes whose kubelets restart once every replacement is bound
+NODELOSS_HEARTBEAT_S = 1.0  # the kubelets' shared heartbeat loop's interval
+# the grace period raised from 4.0 s: the heartbeat pass over 2,500 kubelets
+# reaches 5 s, and a lease then ages past 4 s between two renewals
+NODELOSS_LIFECYCLE = dict(node_monitor_period=0.5, node_monitor_grace_period=10.0,
+                          pod_eviction_timeout=1.0, eviction_limiter_qps=100.0)
+NODELOSS_TOLERATION_S = 3  # rs-1's tolerationSeconds on the unreachable taint
+# events a kind the store keeps for watch resumption (the reference's
+# default 200,000 holds 40 s of 5,000 kubelets' lease renewals, each a deep
+# copy that every full collection walks)
+NODELOSS_WATCH_HISTORY = 20_000
+LIFECYCLE_TAINTS = ("node.kubernetes.io/unreachable", "node.kubernetes.io/not-ready")
+
+
+class NodeLossWatch:
+    """Two store watches from the current resource version on, each drained
+    by a thread of its own, so that the phase polls no list of the store
+    (a list deep-copies every object under the store's one lock, which the
+    5,000 kubelets' lease renewals take one at a time). Nodes: each node's
+    taint keys as the last event left them, the first time each carried
+    both lifecycle taints, the first time after that it carried none, and
+    every node outside `killed` that was ever tainted. Pods: each live
+    pod's (name, node, owner) by uid, and every deletion (time, name, uid,
+    node, owner). Times are time.time(), the lifecycle controller's
+    clock."""
+
+    def __init__(self, store, killed: set):
+        self.store = store
+        self.killed = killed
+        self.taints = {}
+        self.tainted_at = {}
+        self.untainted_at = {}
+        self.stray = set()
+        self.pods = {}
+        self.deleted = []
+        self.rv = {}
+        self._stop = threading.Event()
+        self._threads = []
+        for kind, handle in (("nodes", self._node), ("pods", self._pod)):
+            self.rv[kind] = store.kind_resource_version(kind)
+            w = store.watch(kind, from_version=self.rv[kind])
+            t = threading.Thread(target=self._drain, args=(kind, w, handle), daemon=True,
+                                 name=f"nodeloss-watch-{kind}")
+            t.start()
+            self._threads.append((t, w))
+
+    def _drain(self, kind, w, handle) -> None:
+        while not self._stop.is_set():
+            ev = w.get(timeout=0.1)
+            if ev is None:
+                continue
+            handle(ev)
+            self.rv[kind] = ev.resource_version
+
+    def _node(self, ev) -> None:
+        name, now = ev.object.metadata.name, time.time()
+        keys = frozenset(t.key for t in ev.object.spec.taints) if ev.type != "DELETED" else frozenset()
+        self.taints[name] = keys
+        if keys and name not in self.killed:
+            self.stray.add(name)
+        if keys >= set(LIFECYCLE_TAINTS):
+            self.tainted_at.setdefault(name, now)
+        elif not keys and name in self.tainted_at:
+            self.untainted_at.setdefault(name, now)
+
+    def _pod(self, ev) -> None:
+        p = ev.object
+        owner = next((r.name for r in p.metadata.owner_references), None)
+        if ev.type == "DELETED" or p.metadata.deletion_timestamp is not None:
+            if self.pods.pop(p.metadata.uid, None) is not None:
+                self.deleted.append((time.time(), p.metadata.name, p.metadata.uid,
+                                     p.spec.node_name, owner))
+        else:
+            self.pods[p.metadata.uid] = (p.metadata.name, p.spec.node_name, owner)
+
+    def tainted_now(self) -> set:
+        return {n for n, keys in list(self.taints.items()) if keys}
+
+    def caught_up(self) -> bool:
+        return all(self.rv.get(k, 0) >= self.store.kind_resource_version(k)
+                   for k in ("nodes", "pods"))
+
+    def stop(self) -> None:
+        self._stop.set()
+        for t, w in self._threads:
+            t.join(timeout=5.0)
+            w.stop()
+
+
+def thread_cpu() -> dict:
+    """CPU seconds each live Python thread of this process has used
+    (/proc/self/task/<tid>/stat, user + system), by thread name."""
+    import os
+
+    hz = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for t in threading.enumerate():
+        try:
+            with open(f"/proc/self/task/{t.native_id}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except (OSError, TypeError):
+            continue
+        out[t.name] = out.get(t.name, 0.0) + (int(fields[11]) + int(fields[12])) / hz
+    return out
+
+
+class HeartbeatPasses:
+    """The pool's heartbeat pass times: one pass gives every kubelet's
+    heartbeat(now) the same `now` (the pass's start, time.time()) and ends
+    when the last of them returns."""
+
+    def __init__(self):
+        self.end = {}
+
+    def wrap(self, kubelet):
+        beat = kubelet.heartbeat
+
+        def timed(now=None):
+            beat(now)
+            self.end[now] = time.time()
+
+        kubelet.heartbeat = timed
+        return kubelet
+
+    def passes(self) -> list:
+        return [e - n for n, e in sorted(self.end.items()) if n is not None]
+
+    def timeline(self, t0: float) -> list:
+        """(start - t0, duration) of each pass, in seconds."""
+        return [(round(n - t0, 1), round(e - n, 2))
+                for n, e in sorted(self.end.items()) if n is not None]
+
+
+def nodeloss_replicaset(k: int, replicas: int, template):
+    """ReplicaSet rs-k of `template`'s pod spec, in a namespace of its own
+    (nodeloss-k): rs-0 tolerates every taint (key "" and Exists: the
+    DaemonSet form), rs-1 the unreachable taint for NODELOSS_TOLERATION_S
+    seconds, the rest nothing."""
+    import copy
+
+    from kubernetes_tpu_torch.api import objects as v1
+
+    spec = copy.deepcopy(template.spec)
+    spec.tolerations = {
+        0: [v1.Toleration(key="", operator=v1.TOLERATION_OP_EXISTS)],
+        1: [v1.Toleration(key=LIFECYCLE_TAINTS[0], operator=v1.TOLERATION_OP_EXISTS,
+                          effect=v1.TAINT_NO_EXECUTE, toleration_seconds=NODELOSS_TOLERATION_S)],
+    }.get(k, [])
+    name = f"rs-{k}"
+    return v1.ReplicaSet(
+        metadata=v1.ObjectMeta(name=name, namespace=f"nodeloss-{k}"),
+        spec=v1.ReplicaSetSpec(
+            replicas=replicas, selector={"rs": name},
+            template=v1.PodTemplateSpec(metadata=v1.ObjectMeta(labels={"rs": name}), spec=spec),
+        ),
+    )
+
+
+def tainted_rows_match(sched, store, names, what: str) -> int:
+    """The taint columns of `names`' rows on the card (the live snapshot,
+    flushed, gathered by SnapshotEncoder.fetch_device_rows) equal the host
+    encoding of the API server's node objects and the encoder's masters,
+    once the Scheduler's node informer has every node event. Returns the
+    rows checked."""
+    inf = sched.informer_factory.informer("nodes")
+    target = store.kind_resource_version("nodes")
+    wait_for(lambda: inf.last_resource_version >= target, 30,
+             "the Scheduler's node informer", period=0.01, phase="nodeloss")
+    enc = sched.cache.encoder
+    with sched.cache.lock:
+        enc.flush()
+        rows = [enc.row_of(n) for n in names]
+        host = [enc.encode_node_row_values(store.get("nodes", "", n)) for n in names]
+        masters = {f: enc._master_of(f)[rows].copy()
+                   for f in ("taint_key", "taint_val", "taint_effect")}
+    dev = enc.fetch_device_rows(rows)
+    for f in ("taint_key", "taint_val", "taint_effect"):
+        want = np.stack([h[f] for h in host])
+        differ = (dev[f] != want).any(axis=1) | (masters[f] != want).any(axis=1)
+        if differ.any():
+            i = int(np.argmax(differ))
+            raise AssertionError(
+                f"[nodeloss] {what}: {f} of {names[i]} is {dev[f][i].tolist()} on the card, "
+                f"{masters[f][i].tolist()} in the masters, {want[i].tolist()} encoded")
+    return len(rows)
+
+
+def phase_nodeloss(device, card: str, errors: ErrorLog, seed: int = 0,
+                   workload: str = NODELOSS_WORKLOAD, replicas: int = NODELOSS_REPLICAS,
+                   revive: int = NODELOSS_REVIVE) -> dict:
+    """[nodeloss]: node loss as tests/test_chaos_pipeline.py's kubelet cases
+    run it, at `workload`'s nodes: those of the first
+    NODELOSS_MANAGED_ZONES zones lease-managed (a kubelet each in one
+    NodeAgentPool, heartbeat NODELOSS_HEARTBEAT_S, and a node lease), the
+    rest static; a bind-ledger store (ledger_server) keeping
+    NODELOSS_WATCH_HISTORY events a kind; the Scheduler on `device` with
+    the reference's settings; the replicaset controller's reconcile (its
+    workers, fed by its ReplicaSets' writes and a resync every
+    resync_period: the copied controller's watch loop takes one pod event
+    a turn) and NODELOSS_SETS ReplicaSets of `replicas` pods each, each in
+    a namespace of its own. Once all are bound, the node-lifecycle
+    controller starts (NODELOSS_LIFECYCLE); at one instant the kubelets of
+    NODELOSS_ZONE stop and an 11th ReplicaSet of `replicas` is created,
+    whose waves run while the taints land. Once every replacement is
+    bound, `revive` of the dead nodes' kubelets restart; once their taints
+    are lifted, the 11th ReplicaSet grows by `replicas`.
+    Fails unless every killed node carries both lifecycle taints in the API
+    server and in its rows on the card (equal to the host encoding), no
+    other node was ever tainted, the partial-disruption gauge stayed 0,
+    every rs-1..rs-9 pod on a killed node was evicted (rs-1's no sooner
+    than its tolerationSeconds after its node went NotReady) and every
+    rs-0 pod stayed, node_lifecycle_evictions_total rose by the pods
+    deleted from killed nodes, every ReplicaSet is back at its replicas,
+    all bound, none on a node whose NoSchedule or NoExecute taint it does
+    not tolerate, check_capacity passes, every bind applied once on the
+    ledger, the revived rows read untainted on the card and at least one
+    of the last `replicas` pods bound to a revived node, K1 launched after
+    the kill (on the card), one replacement batch on the tainted snapshot
+    held card against CPU (hold_batch: equal but for near-ties, no pod on
+    a taint it does not tolerate), 0 guard trips, drift rows, rebuilds
+    and device-down, an auditor pass, and no ERROR."""
+    import copy
+    from collections import Counter
+
+    from kubernetes_tpu_torch.api import objects as v1
+    from kubernetes_tpu_torch.client.leaderelection import Lease
+    from kubernetes_tpu_torch.controller import nodelifecycle
+    from kubernetes_tpu_torch.controller.replicaset import ReplicaSetController
+    from kubernetes_tpu_torch.kubelet.kubelet import NODE_LEASE_NS, NodeAgentPool
+    from kubernetes_tpu_torch.ops import fit_kernels
+    from kubernetes_tpu_torch.ops.encoding import EncodingConfig, SnapshotEncoder
+    from kubernetes_tpu_torch.ops.lattice import weights_for_policy
+    from kubernetes_tpu_torch.ops.templates import TemplateCache
+    from kubernetes_tpu_torch.perf.harness import default_config, defense_counts
+    from kubernetes_tpu_torch.perf.workloads import WORKLOADS, build_workload
+    from kubernetes_tpu_torch.scheduler import Scheduler
+    from kubernetes_tpu_torch.scheduler.wavepath import WavePathConfig
+    from kubernetes_tpu_torch.utils.metrics import metrics
+
+    errors.check("before nodeloss")
+    sets, zone, lifecycle = NODELOSS_SETS, NODELOSS_ZONE, NODELOSS_LIFECYCLE
+    nodes, _init, factory = build_workload(WORKLOADS[workload])
+    template = factory(0)
+    store = ledger_server(watch_history=NODELOSS_WATCH_HISTORY)
+    t0 = time.perf_counter()
+    now = time.time()
+    zones = sorted({n.metadata.labels[ZONE] for n in nodes}, key=lambda z: int(z.split("-")[1]))
+    managed_set = set(zones[:NODELOSS_MANAGED_ZONES])
+    managed = [n for n in nodes if n.metadata.labels[ZONE] in managed_set]
+    for n in nodes:
+        store.create("nodes", n)
+    for n in managed:
+        store.create("leases", Lease(
+            metadata=v1.ObjectMeta(name=n.metadata.name, namespace=NODE_LEASE_NS),
+            holder_identity=n.metadata.name, lease_duration_seconds=40.0, renew_time=now))
+    beats = HeartbeatPasses()
+    pool = NodeAgentPool(store, heartbeat_interval=NODELOSS_HEARTBEAT_S)
+    for n in managed:
+        beats.wrap(pool.add_node(n.metadata.name, register=False))
+    killed = [n.metadata.name for n in nodes if n.metadata.labels[ZONE] == zone]
+    killed_set, revived = set(killed), killed[:revive]
+    metrics.reset()
+    zero_k(fit_kernels)
+    # the replicaset controller's reconcile (its workers and _sync) runs
+    # off its ReplicaSets' creates and updates and a resync every
+    # resync_period: the copied controller's own watch loop takes one pod
+    # event a turn and re-syncs a ReplicaSet for each, ~15,000 of them
+    # behind 5,000 pods' creates, binds and status writes, and each of
+    # the ~500 evictions, each sync a deep-copying list under the store's
+    # lock (ROADMAP queue 3)
+    rs = ReplicaSetController(store)
+    watch = NodeLossWatch(store, killed_set)
+    sched = Scheduler(store, default_config(), device=device)
+    nlc = nodelifecycle.NodeLifecycleController(store, **lifecycle)
+    monitor, evict, set_ready = nlc._monitor_once, nlc._evict_pods, nlc._set_ready
+    passes, since, partial, evicted_at, tainted_at = [], {}, [], {}, {}
+    lifecycle_timeline = []
+
+    def timed_monitor():
+        t, start = time.perf_counter(), time.time()
+        monitor()
+        passes.append(time.perf_counter() - t)
+        for name, at in list(nlc._not_ready_since.items()):
+            since.setdefault(name, at)
+        partial.append(metrics.gauge(nodelifecycle.GAUGE_PARTIAL_DISRUPTION))
+        lifecycle_timeline.append((start, passes[-1], metrics.gauge(
+            nodelifecycle.GAUGE_UNHEALTHY_FRACTION), partial[-1]))
+
+    def timed_evict(node_name, pods):
+        pods = list(pods)
+        at = time.time()
+        for p in pods:
+            evicted_at.setdefault(p.metadata.uid, (at, node_name))
+        return evict(node_name, pods)
+
+    def timed_set_ready(name, ready):
+        set_ready(name, ready)
+        if not ready:
+            tainted_at.setdefault(name, time.time())
+
+    nlc._monitor_once, nlc._evict_pods, nlc._set_ready = timed_monitor, timed_evict, timed_set_ready
+
+    def owner(p):
+        return next((r.name for r in p.metadata.owner_references), None)
+
+    t_ref = [time.time(), "the start", time.time()]
+    collections = FullCollections("nodeloss")
+
+    def timelines() -> str:
+        """Each lifecycle pass (start, s; unhealthy fraction; partial
+        disruption) and heartbeat pass (start, s), from the kill (or
+        the start)."""
+        life = [(round(a - t_ref[2], 1), round(d, 2), round(f or 0.0, 3), p)
+                for a, d, f, p in lifecycle_timeline]
+        return (f"lifecycle passes (start s, s, unhealthy, partial) {life}; heartbeat passes "
+                f"(start s, s) {beats.timeline(t_ref[2])}")
+
+    def busiest() -> str:
+        cpu = sorted(thread_cpu().items(), key=lambda kv: -kv[1])[:10]
+        return json.dumps({k: round(v, 1) for k, v in cpu})
+
+    def state():
+        beat = beats.passes()
+        log(f"[nodeloss] at {time.time() - t_ref[0]:.1f} s after {t_ref[1]}: "
+            f"{len(watch.tainted_at)} nodes tainted, others tainted {sorted(watch.stray)[:5]}; "
+            f"{len(evicted_at)} pods evicted, {len(watch.deleted)} deleted; partial disruption "
+            f"max {max(partial, default=0.0)}, unhealthy fraction "
+            f"{metrics.gauge(nodelifecycle.GAUGE_UNHEALTHY_FRACTION) or 0.0:.3f}; {len(passes)} "
+            f"lifecycle passes, the last {[round(x, 3) for x in passes[-5:]]} s; {len(beat)} "
+            f"heartbeat passes, the last {[round(x, 3) for x in beat[-5:]]} s; "
+            f"{collections.summary()}")
+
+    def wait(cond, timeout, what, clock=time.time, period=0.05):
+        def report():
+            state()
+            log(f"[nodeloss] {timelines()}")
+            log(f"[nodeloss] thread CPU s {busiest()}")
+            per = Counter(o for _n, _node, o in list(watch.pods.values()))
+            log(f"[nodeloss] pods by ReplicaSet {dict(sorted(per.items()))}, unbound "
+                f"{sum(1 for _n, node, _o in list(watch.pods.values()) if not node)}; "
+                f"wanted {want}")
+
+        return wait_for(cond, timeout, what, period=period, phase="nodeloss", clock=clock,
+                        report=report)
+
+    want = {f"rs-{k}": replicas for k in range(sets)}
+
+    def live():
+        return [p for p in store.list("pods")[0] if p.metadata.deletion_timestamp is None]
+
+    def converged() -> bool:
+        """From the phase's watch (no store list): every ReplicaSet at its
+        replicas, every pod bound, none but rs-0's on a tainted node."""
+        pods = list(watch.pods.values())
+        tainted = watch.tainted_now()
+        return (Counter(o for _n, _node, o in pods) == Counter(want)
+                and all(node for _n, node, _o in pods)
+                and not any(node in tainted and o != "rs-0" for _n, node, o in pods))
+
+    rs_keys = []
+    stop = threading.Event()
+
+    def resync():
+        """The informer resync of the controller's resync_period: every
+        ReplicaSet re-queued, which replaces the evicted pods (and a pod
+        whose name, 5 hex digits, collided on create)."""
+        while not stop.wait(rs.resync):
+            for key in list(rs_keys):
+                rs.queue.add(key)
+
+    def create_set(k: int, n: int) -> None:
+        obj = store.create("replicasets", nodeloss_replicaset(k, n, template))
+        rs_keys.append(obj.metadata.key)
+        rs.queue.add(obj.metadata.key)
+        want[f"rs-{k}"] = n
+
+    pool.start()
+    sched.start()
+    for i in range(rs.workers):
+        threading.Thread(target=rs._worker, daemon=True, name=f"rs-worker-{i}").start()
+    threading.Thread(target=resync, daemon=True, name="rs-resync").start()
+    counts = RunCounts()
+    try:
+        for k in range(sets):
+            create_set(k, replicas)
+        t_setup = wait(converged, 180, f"{sets * replicas} pods bound",
+                       clock=time.perf_counter, period=0.25)
+        setup_s = t_setup - t0
+        nlc.start()
+        wait(lambda: len(passes) >= 3, 30, "three lifecycle passes before the kill")
+        wait(watch.caught_up, 30, "the phase's watches", period=0.01)
+        before = dict(watch.pods)
+        on_killed = {u: v for u, v in before.items() if v[1] in killed_set}
+        doomed = {u for u, v in on_killed.items() if v[2] != "rs-0"}
+        ev0 = metrics.counter(nodelifecycle.COUNTER_EVICTIONS)
+        de0 = metrics.counter(nodelifecycle.COUNTER_EVICTIONS_DEFERRED)
+        n_pass0 = len(passes)
+        k1_setup = fit_kernels.fit_mask.launches
+        zero_k(fit_kernels)
+        counts.__enter__()
+        t_kill = time.time()
+        t_ref[:] = [t_kill, "the kill", t_kill]
+        for name in killed:
+            pool.remove_node(name)
+        create_set(sets, replicas)
+        wait(lambda: killed_set <= set(tainted_at), 60, f"all {len(killed)} killed nodes tainted")
+        t_tainted = max(tainted_at[n] for n in killed)
+        wait(lambda: doomed <= set(evicted_at), 60, f"the {len(doomed)} evictions")
+        t_bound = wait(converged, 120, "every replacement bound", period=0.25)
+        wait(watch.caught_up, 30, "the phase's watches", period=0.01)
+        evictions = metrics.counter(nodelifecycle.COUNTER_EVICTIONS) - ev0
+        deferred = metrics.counter(nodelifecycle.COUNTER_EVICTIONS_DEFERRED) - de0
+        from_killed = [d for d in watch.deleted if d[0] >= t_kill and d[3] in killed_set]
+        k1_tainted = fit_kernels.fit_mask.launches
+        batches_kill = len(counts.batches)
+        nodes_now = {n.metadata.name: n for n in store.list("nodes")[0]}
+        missing = [n for n in killed
+                   if not set(LIFECYCLE_TAINTS) <= {t.key for t in nodes_now[n].spec.taints}]
+        rows_tainted = tainted_rows_match(sched, store, killed, "the killed nodes")
+        # the tainted snapshot, encoded afresh on the card from the API
+        # server's nodes and bound pods, for the held batch once the
+        # phase's threads have stopped (its CPU run takes every core)
+        tainted = SnapshotEncoder(EncodingConfig.for_cluster(len(nodes)), device=device)
+        for n in nodes_now.values():
+            tainted.add_node(n)
+        for p in live():
+            tainted.add_pod(p.spec.node_name, p)
+        tainted.flush()
+
+        # the revival
+        t_revive = time.time()
+        for name in revived:
+            beats.wrap(pool.add_node(name, register=False))
+        t_ref[:] = [t_revive, "the revival", t_kill]
+        t_untainted = wait(lambda: set(revived) <= set(watch.untainted_at), 60,
+                           f"the {len(revived)} revived nodes untainted")
+        tainted_rows_match(sched, store, revived, "the revived nodes")
+        enc = sched.cache.encoder
+        if (enc.fetch_device_rows([enc.row_of(n) for n in revived])["taint_key"] != -1).any():
+            raise AssertionError("[nodeloss] a revived node's row is still tainted on the card")
+        grown = {u for u, (_n, _node, o) in list(watch.pods.items()) if o == f"rs-{sets}"}
+
+        def grow(cur):
+            cur.spec.replicas = 2 * replicas
+            return cur
+
+        store.guaranteed_update("replicasets", f"nodeloss-{sets}", f"rs-{sets}", grow)
+        rs.queue.add(f"nodeloss-{sets}/rs-{sets}")
+        want[f"rs-{sets}"] = 2 * replicas
+        t_grown = wait(converged, 120, f"rs-{sets} grown by {replicas}", period=0.25)
+        pods_end = live()
+        last = [p for p in pods_end if owner(p) == f"rs-{sets}" and p.metadata.uid not in grown]
+        on_revived = sum(1 for p in last if p.spec.node_name in set(revived))
+        wait(watch.caught_up, 30, "the phase's watches", period=0.01)
+        # the auditor (period 5 s) skips while waves are in flight: one
+        # clean pass on the settled snapshot
+        wait(lambda: defense_counts()["audit_passes"] >= 1, 30, "an auditor pass", period=0.1)
+        stray = sorted(watch.stray)
+        cpu_by_thread = busiest()
+        beat_passes = beats.passes()
+        batches = list(counts.batches)
+    finally:
+        stop.set()
+        counts.__exit__()
+        collections.close()
+        nlc.stop()
+        rs.stop()
+        sched.stop()
+        pool.stop()
+        watch.stop()
+    k1, k2 = count_k(fit_kernels)
+
+    # one replacement batch on the tainted snapshot, card against CPU
+    sets_held = [nodeloss_replicaset(k, 1, template).spec.template for k in range(sets)]
+
+    def replacement(i):
+        t = sets_held[i % sets]
+        return v1.Pod(metadata=v1.ObjectMeta(name=f"held-{i}", labels=dict(t.metadata.labels)),
+                      spec=copy.deepcopy(t.spec))
+
+    mp = {"enc": tainted, "cache": TemplateCache(tainted), "cfg": WavePathConfig(),
+          "weights": torch.tensor(weights_for_policy("default"), device=device),
+          "rng": torch.Generator(device=device).manual_seed(seed), "factory": replacement}
+    held = hold_batch(mp, device, "nodeloss")
+    chosen = held["res"].chosen.cpu().numpy()
+    placed = held["res"].placed.cpu().numpy()
+    killed_rows = {tainted.row_of(n) for n in killed}
+    on_taint = [p.metadata.name for i, p in enumerate(held["batch"])
+                if placed[i] and int(chosen[i]) in killed_rows and not p.spec.tolerations]
+    held_ties, held_cpu_s = held["ties"], held["cpu_s"]
+    del mp, held, tainted
+    errors.check("nodeloss")
+    trips = sum(v for _n, _l, v in metrics.snapshot_counters("kernel_guard_trips_total"))
+    d = defense_report("nodeloss", card, sched=sched)
+    rs1 = [(evicted_at[u][0] - since[v[1]], evicted_at[u][0] - tainted_at[v[1]])
+           for u, v in on_killed.items() if v[2] == "rs-1" and u in evicted_at]
+    stayed = [u for u, v in on_killed.items() if v[2] == "rs-0"
+              and any(p.metadata.uid == u and p.spec.node_name == v[1] for p in pods_end)]
+    evict_times = sorted(at for at, _n in evicted_at.values())
+    landed = sum(1 for d_ in from_killed if d_[4] == f"rs-{sets}")
+    mon = np.array(passes[n_pass0:] or passes)
+    beat = np.array(beat_passes)
+    log(f"[nodeloss] {workload}'s {len(nodes)} nodes, {len(managed)} of them ({len(managed_set)} "
+        f"zones) with a kubelet (heartbeat {NODELOSS_HEARTBEAT_S} s) and a node lease; {sets} "
+        f"ReplicaSets of {replicas} pods "
+        f"bound in {setup_s:.3f} s with node creation; lifecycle {json.dumps(lifecycle)}; "
+        f"the kubelets of {zone}'s {len(killed)} nodes stopped with rs-{sets} ({replicas} pods) "
+        f"created at the same instant; kill -> all {len(killed)} tainted "
+        f"{t_tainted - t_kill:.3f} s, -> first eviction {evict_times[0] - t_kill:.3f} s, -> all "
+        f"{len(doomed)} evicted {max(evicted_at[u][0] for u in doomed) - t_kill:.3f} s, -> every "
+        f"replacement bound {t_bound - t_kill:.3f} s; evictions {evictions:.0f} ({landed} of "
+        f"them rs-{sets} pods that landed on a killed node), deferred evictions {deferred:.0f}; "
+        f"rs-1 evicted {min(r[0] for r in rs1):.3f}-{max(r[0] for r in rs1):.3f} s after its "
+        f"node went NotReady ({min(r[1] for r in rs1):.3f} s after its taint was written at the "
+        f"least), {len(stayed)} rs-0 pods stayed; lifecycle pass p50 "
+        f"{np.median(mon) * 1e3:.1f} ms, max {mon.max() * 1e3:.1f} ms ({len(passes)} passes); "
+        f"heartbeat pass p50 {np.median(beat):.3f} s, max {beat.max():.3f} s ({len(beat)} "
+        f"passes); wave batches after the kill {batches_kill} (pods, placed) "
+        f"{batches[:batches_kill][:12]}; K1 launches {k1_setup} before the kill, {k1_tainted} "
+        f"from the kill to every replacement bound, {k1} from the kill to the end; K2 {k2}; {rows_tainted} tainted rows on the card equal to the host encoding; revive "
+        f"{len(revived)} -> untainted {t_untainted - t_revive:.3f} s, rs-{sets} grown by "
+        f"{replicas} bound {t_grown - t_untainted:.3f} s later, {on_revived} of them on a revived "
+        f"node; held batch of {len(chosen)} replacements on the tainted snapshot: card == CPU "
+        f"({held_ties} near-tie chosen differences; the CPU run {held_cpu_s:.2f} s), "
+        f"{len(on_taint)} on a taint they do not tolerate; {collections.summary()}; guard "
+        f"trips {trips:.0f}; card {card}")
+    if any(partial) or stray:
+        log(f"[nodeloss] {timelines()}; thread CPU s {cpu_by_thread}")
+    if missing or stray:
+        raise AssertionError(f"[nodeloss] killed nodes without both taints {missing[:3]}, "
+                             f"other nodes tainted {stray[:3]}")
+    if any(partial):
+        raise AssertionError("[nodeloss] the partial-disruption gauge left 0")
+    gone = {d_[2] for d_ in from_killed}
+    if not doomed <= gone or len(stayed) != sum(1 for v in on_killed.values() if v[2] == "rs-0"):
+        raise AssertionError(f"[nodeloss] {len(doomed - gone)} doomed pods not deleted, "
+                             f"{len(stayed)} rs-0 pods stayed")
+    if not rs1 or min(r[0] for r in rs1) < NODELOSS_TOLERATION_S:
+        raise AssertionError(f"[nodeloss] rs-1 evicted inside its toleration: {rs1[:3]}")
+    if evictions != len(from_killed):
+        raise AssertionError(f"[nodeloss] {evictions:.0f} evictions counted, "
+                             f"{len(from_killed)} pods deleted from killed nodes")
+    check_capacity(store, "nodeloss")
+    nodes_end = {n.metadata.name: n for n in store.list("nodes")[0]}
+    untolerated = [p.metadata.name for p in pods_end if v1.find_untolerated_taint(
+        nodes_end[p.spec.node_name].spec.taints, p.spec.tolerations) is not None]
+    uids = {p.metadata.uid for p in pods_end}
+    twice = {u: n for u, n in store.applied.items() if n != 1}
+    if untolerated or not uids <= set(store.applied) or twice:
+        raise AssertionError(f"[nodeloss] {len(untolerated)} pods on a taint they do not "
+                             f"tolerate, {len(uids - set(store.applied))} never bound, "
+                             f"{len(twice)} bound more than once")
+    if on_revived <= 0:
+        raise AssertionError(f"[nodeloss] none of rs-{sets}'s last {replicas} pods on a revived node")
+    if on_taint:
+        raise AssertionError(f"[nodeloss] the held batch placed {on_taint[:3]} on a killed node")
+    if k1_tainted <= 0 and device.type == "cuda":
+        raise AssertionError("[nodeloss] K1 never launched after the kill")
+    if trips or sched._device_down or not d["audit_passes"]:
+        raise AssertionError(f"[nodeloss] guard trips {trips}, device down "
+                             f"{sched._device_down}, auditor passes {d['audit_passes']}")
+    return {"k1": k1, "k2": k2}
+
+
 def phase_audit(server, device, card: str, errors: ErrorLog) -> dict:
     """[audit] on the [scheduler] phase's cluster after its burst (5,000
     nodes and the 6,000 pods the API server holds bound): the snapshot
@@ -1719,16 +2343,16 @@ def phase_audit(server, device, card: str, errors: ErrorLog) -> dict:
     return out
 
 
-def ledger_server():
-    """An APIServer that counts the binds it applies per pod uid, for the
-    fault phases' "every pod bound exactly once"."""
+def ledger_server(**kw):
+    """An APIServer (of `kw`) that counts the binds it applies per pod uid,
+    for the fault phases' "every pod bound exactly once"."""
     from collections import defaultdict
 
     from kubernetes_tpu_torch.client.apiserver import APIServer
 
     class LedgerServer(APIServer):
         def __init__(self):
-            super().__init__()
+            super().__init__(**kw)
             self.applied = defaultdict(int)
 
         def bind_pods(self, bindings, fence=None):
@@ -1744,8 +2368,12 @@ def ledger_server():
 # the fault phases' cluster: SchedulingPodAffinity's nodes with initial
 # pods pre-bound, small enough that a batch quarantined to the host filter
 # chain binds in seconds (cut from 500 nodes and 100 initial pods,
-# PERF.md §4, so that the script stays inside its time limit)
-FAULT_CLUSTER = ("SchedulingPodAffinity", 250, 50)
+# PERF.md §4, so that the script stays inside its time limit), and above
+# small_batch_host_node_max (256): at or below it the Scheduler sends a
+# batch of at most 4 pods down the host path, so whether a check that
+# wants every pod bound on the device passes would turn on how many of
+# the measured pods the first pop found
+FAULT_CLUSTER = ("SchedulingPodAffinity", 260, 50)
 
 
 def run_fault(device, what: str, inj_kw: dict, cfg_kw: dict, rounds,
@@ -1878,7 +2506,7 @@ LOSS_ERRORS = (
 
 
 def phase_guards(device, card: str, errors: ErrorLog) -> dict:
-    """[guards] on the fault cluster (250 nodes, 50 pre-bound pods):
+    """[guards] on the fault cluster (260 nodes, 50 pre-bound pods):
     NaN scores on the first trailing (score) readback and a wild chosen
     row on the second index readback, 100 + 100 pods: both trips counted
     by reason, the wild batch quarantined to the host path, the device not
@@ -4365,6 +4993,11 @@ def main(argv=None) -> int:
     phase_fit_kernel(device, parent)
     k2 = phase_least_alloc(device, parent)
     after("K2")
+    # first of the Scheduler phases, while the interpreter's heap is small:
+    # its 2,500 kubelets renew a lease each a second between the full
+    # collections that the heap of the later phases lengthens
+    nodeloss = phase_nodeloss(device, card, errors, args.seed)
+    after("nodeloss")
 
     mp = main_path(device, args.seed)
     b = mp["batches"]
@@ -4468,6 +5101,7 @@ def main(argv=None) -> int:
             "launches_preempt": preempt[k],
             "launches_standby": standby[k],
             "launches_ha": ha[k],
+            "launches_nodeloss": nodeloss[k],
             "launches_hostcb": hostcb[k],
             "launches_whatif": whatif[k],
             "launches_autoscaler": autoscaler[k],

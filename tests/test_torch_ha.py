@@ -245,8 +245,20 @@ def _create_riding(pkg, store, names):
     return []
 
 
-def _applied_once(store):
-    return bool(store.applied_binds) and all(c == 1 for c in store.applied_binds.values())
+def _applied_once(store, timeout=10.0):
+    """Every bind the store applied was applied exactly once, read from the
+    bind ledger once it holds every bound pod: ChaosStore records a bind
+    only after the store has applied it (when super().bind_pods returns,
+    on the Scheduler's bind thread), so a test can see every pod bound
+    while the ledger still lacks them (ROADMAP queue 3)."""
+
+    def caught_up():
+        bound = {p.metadata.uid for p in store.list("pods")[0] if p.spec.node_name}
+        return bound <= set(dict(store.applied_binds))
+
+    wait_until(caught_up, timeout)
+    ledger = dict(store.applied_binds)
+    return bool(ledger) and all(c == 1 for c in ledger.values())
 
 
 # -- (a) tests/test_chaos_ha.py's Scheduler-driving scenarios ------------------
@@ -270,6 +282,42 @@ def _warmup(pkg):
         sched.stop()
         pool.stop()
         cacher.stop()
+
+
+class _GatedLedger(collections.defaultdict):
+    """A bind ledger whose writes wait on `gate`: the binding thread has
+    applied its bind in the store and not yet recorded it."""
+
+    def __init__(self, gate):
+        super().__init__(int)
+        self.gate = gate
+
+    def __setitem__(self, key, value):
+        self.gate.wait(10)
+        super().__setitem__(key, value)
+
+
+@pytest.mark.parametrize("pkg", [REF, PORT])
+def test_bind_ledger_is_read_once_the_binding_thread_records_it(pkg):
+    """The warm-up case's failure made deterministic: a pod reads as bound
+    before ChaosStore's ledger holds its bind (the binding thread records
+    it after the store applied it), and _applied_once reads the ledger
+    only once it holds every bound pod."""
+    p = PKGS[pkg]
+    store = p.ChaosStore()
+    store.create("nodes", p.node("n0"))
+    pod = store.create("pods", p.pod("p0"))
+    gate = threading.Event()
+    store.applied_binds = _GatedLedger(gate)
+    binding = p.v1.Binding(pod_name="p0", pod_namespace="default",
+                           pod_uid=pod.metadata.uid, target_node="n0")
+    t = threading.Thread(target=store.bind_pods, args=([binding],), daemon=True)
+    t.start()
+    assert wait_until(lambda: bound_count(store) == 1, 10)
+    seen = dict(store.applied_binds)
+    threading.Timer(0.2, gate.set).start()
+    assert (seen, _applied_once(store)) == ({}, True)
+    t.join(10)
 
 
 def test_warmup_compile_ha_absorber_matches_reference():
